@@ -22,6 +22,8 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -45,14 +47,22 @@ NECK_SHAPES_384 = [(12, 40, 1024, 512), (24, 80, 512, 512),
 NECK_SHAPES_512 = [(16, 55, 1024, 512, 1), (32, 110, 512, 512, 1),
                    (32, 110, 512, 256, 3), (64, 220, 256, 256, 3)]
 # ragged pixel tile and channel chunks, at clamp 1 (3x3 shifts) and at
-# clamp 1.5 (the kernel's 5x5-shift form)
+# clamp 1.5 (the R = 2 form)
 ODD_SHAPE = (2, 5, 11, 40, 72)
 ODD_CLAMPS = (1.0, 1.5)
+# (B, H, W, Cin, Cout), clamp: H and W no multiple of the bf16 kernel's
+# 8x16 pixel tile; Cin = 200 ends in a partial 64-channel chunk. Both give
+# too few blocks for the card, so the bf16 kernel splits their reduction
+# (as it does for the 384x1280 forward's 12x40 1024->512 layer).
+RAGGED_CASES = (((1, 13, 41, 64, 72), 1.0), ((1, 13, 41, 200, 72), 1.5))
 
-# kernel vs plain: float32 differs by summation order; bfloat16 by the
-# plain version's bf16 rounding of the shifted sums (the kernel keeps them
-# in float32), measured against outputs of unit scale
+# kernel vs plain: float32 differs by summation order; bfloat16 by where
+# each rounds to bf16 (the plain version after each shifted MAC, the
+# kernel once per 4-corner column), measured against outputs of unit scale
 TOL = {torch.float32: 1e-3, torch.bfloat16: 6e-2}
+# the kernel each dtype selects
+KERNEL_OF = {torch.float32: "f32 CUDA-core",
+             torch.bfloat16: "bf16 tensor-core (wgmma)"}
 # card (kernel, float32, TF32 off) against the CPU (plain ops, float64),
 # relative to the largest magnitude of each output: a float32 run of the
 # random-weight DLA-102 detector already differs from float64 by ~2e-3
@@ -79,6 +89,37 @@ def card_label():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0].strip()
+
+
+def ptxas_summary(report):
+    """One line per kernel from nvcc's -Xptxas -v report: registers,
+    spills and stack; warnings and errors verbatim."""
+    out, name = {}, None
+    kernel = re.compile(r"Compiling entry function '\S*(dcn_shift_(?:"
+                        r"bf16_wgmma|splitk_reduce|fwd)_kernel)(ILi(\d)E)?")
+    for line in report.splitlines():
+        m = kernel.search(line)
+        if m:
+            name = m.group(1) + (f"<R={m.group(3)}>" if m.group(3) else "")
+            out[name] = []
+        elif name and ("spill" in line or "registers" in line):
+            out[name].append(line.split(":", 1)[-1].strip())
+        if "warning" in line or "error" in line:
+            out.setdefault("nvcc", []).append(line.strip())
+    return [f"{k}: {'; '.join(v)}" for k, v in out.items()]
+
+
+def count_sass(lib, opcode):
+    """Count of `opcode` in the library's SASS, or None without cuobjdump."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "", "bin",
+                                                     "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    res = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                         timeout=120, check=True)
+    return sum(opcode in line for line in res.stdout.splitlines())
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -122,28 +163,33 @@ def shift_dcn_inputs(B, H, W, C, Cout, dtype, device, seed, clamp=1.0):
 
 
 def phase_kernel_vs_plain(device):
-    """The shift-DCN kernel against its plain version at the neck shapes of
-    one 384x1280 image and of a 512x1760 batch of 8, and at one odd shape,
-    in float32 and bfloat16. Returns the bf16 sums over each forward's 8
-    layers: {run: {ms, plain_ms, bound_ms, bytes_ms, ops_ms}}, and the
-    largest bf16 max|diff|."""
+    """The shift-DCN kernels against their plain version at the neck shapes
+    of one 384x1280 image and of a 512x1760 batch of 8, and at odd and
+    ragged shapes, in float32 (CUDA-core kernel) and bfloat16 (tensor-core
+    kernel). Returns the bf16 sums over each forward's 8 layers:
+    {run: {ms, plain_ms, bound_ms, bytes_ms, ops_ms}}, and the largest
+    bf16 max|diff|."""
     from m3dssd_tpu_torch.ops import dcn as tdcn
     from m3dssd_tpu_torch.ops import dcn_cuda
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    sms = dcn_cuda.num_sms(device)
     # (forward it belongs to, (B, H, W, Cin, Cout), clamp, layers it stands for)
     cases = ([("384x1280 bs=1", (1,) + s, 1.0, 1) for s in NECK_SHAPES_384]
              + [("512x1760 bs=8", (8,) + s[:4], 1.0, s[4])
                 for s in NECK_SHAPES_512]
-             + [("odd", ODD_SHAPE, c, 0) for c in ODD_CLAMPS])
+             + [("odd", ODD_SHAPE, c, 0) for c in ODD_CLAMPS]
+             + [("ragged", s, c, 0) for s, c in RAGGED_CASES])
     totals = {run: dict.fromkeys(("ms", "plain_ms", "bound_ms", "bytes_ms",
                                   "ops_ms"), 0.0)
-              for run, *_ in cases if run != "odd"}
+              for run, _, _, n in cases if n}
     max_err = 0.0
-    log("shift-DCN kernel vs plain (B,H,W,Cin->Cout clamp dtype: max|diff| "
-        "kernel_ms plain_ms bound_ms bound_by)")
+    log("shift-DCN kernel vs plain (B,H,W,Cin->Cout clamp dtype [kernel, "
+        "bf16 split S]: max|diff| kernel_ms plain_ms bound_ms bound_by "
+        "share_of_bound)")
     for dtype in (torch.float32, torch.bfloat16):
+        log(f" {KERNEL_OF[dtype]} kernel:")
         for i, (run, (B, H, W, C, Co), clamp, n) in enumerate(cases):
             args = shift_dcn_inputs(B, H, W, C, Co, dtype, device, seed=i,
                                     clamp=clamp)
@@ -159,17 +205,22 @@ def phase_kernel_vs_plain(device):
             del got, want
             size = B * H * W * C * Co
             iters = 50 if size < 1e8 else 20 if size < 1e9 else 5
-            k_ms = cuda_ms(kernel, iters)
+            k_ms = cuda_ms(kernel, max(iters, 20))
             p_ms = cuda_ms(plain, iters)
             t_bytes, t_ops = shift_dcn_bound(B, H, W, C, Co, dtype)
             bound = max(t_bytes, t_ops)
             by = "bytes" if t_bytes > t_ops else "operations"
             name = str(dtype).replace("torch.", "")
-            log(f"  {B},{H},{W},{C}->{Co} {clamp} {name}: {err:.3e} "
-                f"{k_ms:.4f} {p_ms:.4f} {bound:.4f} {by}")
+            split = ""
+            if dtype == torch.bfloat16:
+                S = dcn_cuda.plan(B, H, W, C, Co, math.ceil(clamp), sms).split
+                split = f", split {S}"
+            log(f"  {B},{H},{W},{C}->{Co} {clamp} {name} [{KERNEL_OF[dtype]}"
+                f"{split}]: {err:.3e} {k_ms:.4f} {p_ms:.4f} {bound:.4f} {by} "
+                f"{bound / k_ms:.4f}")
             if dtype == torch.bfloat16:
                 max_err = max(max_err, err)
-                if run != "odd":
+                if n:
                     t = totals[run]
                     for key, v in (("ms", k_ms), ("plain_ms", p_ms),
                                    ("bound_ms", bound), ("bytes_ms", t_bytes),
@@ -179,7 +230,8 @@ def phase_kernel_vs_plain(device):
     for run, t in totals.items():
         log(f"  one {run} forward's 8 neck layers, bf16: kernel "
             f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
-            f"{t['bound_ms']:.4f} ms")
+            f"{t['bound_ms']:.4f} ms, share of bound "
+            f"{t['bound_ms'] / t['ms']:.4f}")
     log("  no single PyTorch call computes this function (library_ms null)")
     torch.cuda.empty_cache()
     return totals, max_err
@@ -368,15 +420,20 @@ def main() -> int:
     log(f"built {os.path.relpath(lib, ROOT)} from "
         f"{os.path.relpath(_build.SOURCE, ROOT)} in "
         f"{time.perf_counter() - t0:.1f} s")
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
-            log(f"  {line.strip()}")
+    for line in ptxas_summary(report):
+        log(f"  {line}")
+    hgmma = count_sass(lib, "HGMMA")
+    if hgmma is not None:
+        log(f"  {hgmma} HGMMA (wgmma) instructions in the library's SASS")
 
     totals, max_err = phase_kernel_vs_plain(torch.device("cuda"))
     launches = phase_detect(label)
     phase_card_vs_cpu()
 
-    fwd = totals["384x1280 bs=1"]
+    # the kernel's numbers summed over one forward of each size: the
+    # 384x1280 bs=1 and the 512x1760 bs=8 neck, 8 layers each
+    fwd = {k: sum(t[k] for t in totals.values())
+           for k in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
     kernels = [{
         "name": "dcn_v2_shift",
         "route": "cuda",
@@ -390,6 +447,8 @@ def main() -> int:
         "bound_by": ("bytes" if fwd["bytes_ms"] > fwd["ops_ms"]
                      else "operations"),
         "library_ms": None,
+        "forwards": {run: {k: t[k] for k in ("ms", "plain_ms", "bound_ms")}
+                     for run, t in totals.items()},
     }]
     log(f"smoke run took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -25,6 +25,10 @@ import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line("markers", "cuda: needs a CUDA card")
+
+
 @pytest.fixture(scope="session")
 def synthetic_kitti(tmp_path_factory):
     """A small synthetic KITTI-layout dataset shared across the session."""

@@ -48,11 +48,12 @@ def _case(seed, B, H, W, C, Co, dtype, dev, clamp=1.0):
                                          ((1, 12, 40, 64, 130), 1.0),
                                          ((1, 5, 11, 40, 72), 1.5)])
 def test_dcn_shift_kernel_matches_plain(cuda_device, dtype, shape, clamp):
-    """float32: the kernel sums in another order (1e-4). bfloat16: the
-    plain version rounds the shifted sums to bf16 and the kernel keeps
-    float32, so they differ by bf16 rounding at unit scale (6e-2). W = 11
-    leaves a ragged pixel tile; C = 40 and Cout = 72, 130 leave ragged
-    channel chunks; clamp 1.5 runs the kernel's 5x5-shift (R = 2) form."""
+    """float32: the CUDA-core kernel sums in another order (1e-4).
+    bfloat16: the plain version rounds each shifted MAC to bf16 and the
+    tensor-core kernel rounds each 4-corner column once, so they differ by
+    bf16 rounding at unit scale (6e-2). W = 11 leaves a ragged pixel tile;
+    C = 40 and Cout = 72, 130 leave ragged channel chunks (Cout = 130 rows
+    are not 16-byte aligned); clamp 1.5 runs the R = 2 form."""
     args = _case(11, *shape, dtype, cuda_device, clamp=clamp)
     before = dcn_cuda.launches
     got = dcn_cuda.dcn_v2_shift_cuda(*args, clamp=clamp)
@@ -65,6 +66,33 @@ def test_dcn_shift_kernel_matches_plain(cuda_device, dtype, shape, clamp):
     torch.testing.assert_close(tdcn.dcn_v2_shift(*args, clamp=clamp), got,
                                rtol=0, atol=0)
     assert dcn_cuda.launches == before + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,clamp", [((1, 12, 40, 1024, 512), 1.0),
+                                         ((1, 13, 41, 64, 72), 1.0),
+                                         ((1, 13, 41, 200, 72), 1.5)])
+def test_dcn_shift_bf16_kernel_split_and_ragged_tiles(cuda_device, shape,
+                                                      clamp):
+    """1x12x40, 1024->512 fills too few blocks for the card, so the plan
+    splits its reduction; 13x41 is no multiple of the 8x16 pixel tile;
+    C = 200 ends in a partial 64-channel chunk. One call of the op counts
+    one launch, with or without the split's reduce kernel."""
+    B, H, W, C, Co = shape
+    args = _case(3, *shape, torch.bfloat16, cuda_device, clamp=clamp)
+    p = dcn_cuda.plan(B, H, W, C, Co, 2 if clamp > 1 else 1,
+                      dcn_cuda.num_sms(cuda_device))
+    if shape[3] == 1024:
+        assert p.split > 1
+    before = dcn_cuda.launches
+    got = dcn_cuda.dcn_v2_shift_cuda(*args, clamp=clamp)
+    want = tdcn.dcn_v2_shift_reference(*args, clamp=clamp)
+    torch.cuda.synchronize()
+    assert dcn_cuda.launches == before + 1
+    torch.testing.assert_close(got.float(), want.float(), rtol=6e-2,
+                               atol=6e-2)
+    # the split reduction sums in a fixed order: the same bits every call
+    assert torch.equal(dcn_cuda.dcn_v2_shift_cuda(*args, clamp=clamp), got)
 
 
 @pytest.mark.cuda
