@@ -28,6 +28,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -402,6 +403,275 @@ def phase_card_vs_cpu():
     return worst
 
 
+# the eval phase: an in-memory synthetic split of KITTI-sized images
+# through the batched test driver at the flagship's test scale
+EVAL_CROP = (384, 1280)
+EVAL_IMAGES = 64
+EVAL_BATCH = 8
+EVAL_IM = (375, 1242)
+# anchors per image whose Car score clears score_thres once the Car logit
+# is raised: a trained detector leaves a handful of confident detections
+# per image, not one per anchor
+EVAL_ANCHORS_ABOVE = 100
+# the sparse pre-NMS budget (anchors) of the bs=1 comparison
+SPARSE_TOPM = 8192
+
+
+def confident_cars(model, conf, images):
+    """Turn the random-weight detector into one that, like a trained one,
+    finds the background almost everywhere and a few confident cars: raise
+    the background logit (`bias_background`), widen the Car logit's spread
+    across anchors to about 1 (at init it is nearly constant), and raise it
+    by one bias chosen on `images` so that about EVAL_ANCHORS_ABOVE anchors
+    per image score at least conf.score_thres. Returns the Car bias."""
+    from m3dssd_tpu_torch.models import bias_background
+
+    C = conf.num_classes
+    conv = model.cls_tower.Conv_2
+    bias_background(model, C, 4.0)
+
+    def car_logits():
+        with torch.inference_mode():
+            cls = model(images, packed=True)["cls"].float()    # [B, N, C]
+        others = torch.cat([cls[..., :1], cls[..., 2:]], -1)
+        return cls[..., 1], cls[..., 1] - torch.logsumexp(others, -1)
+
+    car, _ = car_logits()
+    with torch.no_grad():
+        conv.weight[1::C] *= 1.0 / float(car.std())
+    _, margin = car_logits()
+    q = 1.0 - EVAL_ANCHORS_ABOVE / margin.shape[1]
+    t = conf.score_thres
+    bias = math.log(t / (1.0 - t)) - float(
+        torch.quantile(margin.flatten().cpu(), q))
+    with torch.no_grad():
+        conv.bias[1::C] += bias
+    return bias
+
+
+def read_txts(folder):
+    return {f: open(os.path.join(folder, f)).read()
+            for f in sorted(os.listdir(folder)) if f.endswith(".txt")}
+
+
+def check_rows(txts, lbls):
+    """Every row of every result txt parses into 16 KITTI fields."""
+    rows = 0
+    for name, text in txts.items():
+        for line in text.splitlines():
+            f = line.split()
+            check(len(f) == 16 and f[0] in lbls,
+                  f"{name}: malformed row {line!r}")
+            vals = [float(v) for v in f[1:]]
+            check(all(math.isfinite(v) for v in vals), f"{name}: {line!r}")
+            rows += 1
+    return rows
+
+
+def phase_eval(label, device="cuda"):
+    """The eval path: `test_kitti_3d` over an in-memory synthetic split at
+    384x1280 bs=8 (bf16, packed input), result txts and AP; then the
+    loop's parts timed on the same batches, the sequential loop against
+    the one that post-processes on a worker thread, both AP engines on the
+    gt written as detections, and the sparse pre-NMS path at bs=1. Returns
+    the kernel's launches in the driver's run."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from m3dssd_tpu_torch.anchors import locate_anchors
+    from m3dssd_tpu_torch.config import flagship_conf
+    from m3dssd_tpu_torch.data.synthetic import SyntheticEvalSet
+    from m3dssd_tpu_torch.eval import devkit, kitti_eval, native
+    from m3dssd_tpu_torch.inference import test_driver as drv
+    from m3dssd_tpu_torch.inference.detect import (_compact_positions,
+                                                   _sparse_nms_cfg,
+                                                   make_batch_detector)
+    from m3dssd_tpu_torch.models import build
+    from m3dssd_tpu_torch.ops import dcn_cuda
+
+    device = torch.device(device)
+    B, n = EVAL_BATCH, EVAL_IMAGES
+    t0 = time.perf_counter()
+    conf = flagship_conf(EVAL_CROP)
+    data = SyntheticEvalSet(conf, n, seed=5, imW=EVAL_IM[1], imH=EVAL_IM[0])
+    model = perturb_neck_offsets(build(conf, device=device, seed=0), seed=1)
+    rois = locate_anchors(conf.anchors, conf.feat_size, conf.feat_stride)
+    pack = drv._packer(conf, packed_input=True, pin=device.type == "cuda")
+    batches = [torch.cat([pack(data[i]["input"]) for i in range(s, s + B)])
+               .to(device) for s in range(0, n, B)]
+    sfs = torch.ones(B, device=device)
+    car_bias = confident_cars(model, conf, batches[0])
+    detect = make_batch_detector(conf, rois, model, packed_input=True,
+                                 device=device)
+    detect(batches[0], sfs)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        gt = data.write_labels(os.path.join(tmp, "gt"))
+        results = os.path.join(tmp, "results")
+        dcn_cuda.launches = 0
+        t0 = time.perf_counter()
+        res, sel = drv.test_kitti_3d(data, detect, conf, results, gt_path=gt,
+                                     batch_size=B, packed_input=True)
+        entry_s = time.perf_counter() - t0
+        launches = dcn_cuda.launches
+        nb = -(-n // B)
+        check(launches == 8 * nb, f"eval: shift-DCN kernel launched "
+              f"{launches} times in {nb} batches, expected 8 per batch")
+        txts = read_txts(results)
+        check(sorted(txts) == [f"{i:06d}.txt" for i in range(n)],
+              f"eval: {len(txts)} result txts for {n} images")
+        rows = check_rows(txts, conf.lbls)
+        check(rows > 0, "eval: no result rows")
+        check("Car_3d_R40" in res and len(res["Car_3d_R40"]) == 3
+              and all(math.isfinite(v) for v in res["Car_3d_R40"]),
+              f"eval: AP dict {sorted(res)}")
+
+        # the loop's parts on the same batches: detect alone, then the
+        # host post-process alone
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets = [detect(imb, sfs) for imb in batches]
+        torch.cuda.synchronize()
+        detect_s = time.perf_counter() - t0
+        arrs = [d.cpu().numpy() for d in dets]
+        t0 = time.perf_counter()
+        post = [drv.postprocess_dets(conf, arr[j], data.p2,
+                                     np.linalg.inv(data.p2))
+                for arr in arrs for j in range(B)]
+        post_s = time.perf_counter() - t0
+        flat = conf.replace(hill_climbing=False)
+        climbed = 0
+        for k, arr in enumerate(arrs):
+            for j in range(B):
+                plain = drv.postprocess_dets(flat, arr[j], data.p2,
+                                             np.linalg.inv(data.p2))
+                climbed += sum(
+                    (a["z3d"], a["ry3d"]) != (b["z3d"], b["ry3d"])
+                    for a, b in zip(post[k * B + j], plain))
+        check(climbed > 0, "eval: no row moved under hill climbing")
+
+        # the prefetch alone: read and pack every image on the driver's
+        # 8 threads
+        with ThreadPoolExecutor(max_workers=8) as pool:
+            t0 = time.perf_counter()
+            packed = list(pool.map(lambda i: pack(data[i]["input"]),
+                                   range(n)))
+            prefetch_s = time.perf_counter() - t0
+        del packed
+
+        # the sequential loop (the driver's) against the one that
+        # post-processes on a worker thread, in turns; every run writes the
+        # same bytes
+        loop = {True: [], False: []}
+        for i, overlap in enumerate((False, True, True, False)):
+            d = os.path.join(tmp, f"loop{i}")
+            os.makedirs(d)
+            t0 = time.perf_counter()
+            drv._run_batched(data, detect, conf, d, B, pack, device,
+                             overlap=overlap)
+            loop[overlap].append(time.perf_counter() - t0)
+            check(read_txts(d) == txts, "eval: the overlapped loop wrote "
+                  "other bytes" if overlap else "eval: the sequential loop "
+                  "wrote other bytes")
+
+        # AP: the pass over the results, and the gt as detections (100 on
+        # every Car metric) on each engine this machine has
+        engines = ["native", "python"] if native.available() else ["python"]
+        dt = os.path.join(tmp, "gt_as_dt")
+        os.makedirs(dt)
+        k = 0
+        for name, text in read_txts(gt).items():
+            lines = []
+            for line in filter(None, text.splitlines()):
+                k += 1          # distinct scores: one recall step per row
+                lines.append(f"{line} {1.0 - k * 1e-4:.4f}\n")
+            with open(os.path.join(dt, name), "w") as f:
+                f.write("".join(lines))
+        ap_s = {}
+        has_native = native.available
+        try:
+            for engine in engines:
+                # the Python engine runs where the native one is off
+                native.available = has_native if engine == "native" \
+                    else (lambda: False)
+                t0 = time.perf_counter()
+                kitti_eval.evaluate_kitti(gt, results, classes=conf.lbls)
+                ap_s[engine] = time.perf_counter() - t0
+                got = kitti_eval.evaluate_kitti(gt, dt, classes=["Car"])
+                bad = {k: v for k, v in got.items() if k != "_text"
+                       and any(abs(x - 100.0) > 1e-9 for x in v)}
+                check(not bad, f"eval: {engine} engine on the gt as "
+                      f"detections: {bad}")
+        finally:
+            native.available = has_native
+        # the devkit-protocol oracle, written apart from both engines
+        oracle = devkit.evaluate(gt, dt) if devkit.available() else None
+        if oracle is not None:
+            bad = {k: v for k, v in oracle.items() if k.startswith("Car_")
+                   and any(abs(x - 100.0) > 1e-6 for x in v)}
+            check("Car_box3d_R40" in oracle and not bad,
+                  f"eval: devkit oracle on the gt as detections: {bad}")
+
+    # the sparse pre-NMS path at bs=1 against the dense path
+    conf_sp = conf.replace(nms_sparse_topm=SPARSE_TOPM)
+    m_pos, A, thresh = _sparse_nms_cfg(conf_sp, rois)
+    img, sf1 = batches[0][:1], torch.ones(1, device=device)
+    det1 = make_batch_detector(conf, rois, model, packed_input=True,
+                               device=device)
+    det_sp = make_batch_detector(conf_sp, rois, model, packed_input=True,
+                                 device=device)
+    with torch.inference_mode():
+        scores = model(img, packed=True)["scores"].float()
+    posmax = scores.reshape(1, -1, A).amax(-1)
+    n_pos = int((posmax >= thresh).sum())
+    check(bool(_compact_positions(scores, A, thresh, m_pos)[1].all()),
+          f"sparse bs=1: {n_pos} confident positions overflow {m_pos}")
+    a, b = det1(img, sf1).cpu(), det_sp(img, sf1).cpu()
+    keep_a, keep_b = a[0][a[0, :, 4] >= thresh], b[0][b[0, :, 4] >= thresh]
+    check(keep_a.shape == keep_b.shape and keep_a.shape[0] > 0
+          and torch.equal(keep_a[:, 13], keep_b[:, 13])
+          and torch.allclose(keep_a, keep_b, rtol=1e-5, atol=1e-4),
+          "sparse bs=1: kept rows differ from the dense path")
+    sp_ms = {"dense": [], "sparse": []}
+    for kind in ("dense", "sparse", "sparse", "dense"):
+        det = det1 if kind == "dense" else det_sp
+        sp_ms[kind].append(cuda_ms(lambda: det(img, sf1), 10, warmup=2))
+
+    ips = lambda s: n / s
+    ovl, seq = (sum(loop[k]) / 2 for k in (True, False))
+    log(f"eval {EVAL_CROP[0]}x{EVAL_CROP[1]} bs={B}, {n} synthetic "
+        f"{EVAL_IM[0]}x{EVAL_IM[1]} images, packed bf16, background "
+        f"logit +4, Car logit {car_bias:+.3f} ({label}); set-up "
+        f"{setup_s:.1f} s")
+    log(f"  test_kitti_3d with AP: {entry_s:.3f} s, {rows} rows in {n} "
+        f"txts ({rows / n:.2f} per image), {climbed} rows moved by hill "
+        f"climbing; Car_3d_R40 {res['Car_3d_R40']}; launches {launches} "
+        f"({launches // nb} per batch)")
+    log(f"  whole loop (prefetch, upload, detect, post-process, write): "
+        f"sequential (the driver's) {ips(seq):.2f} im/s ({loop[False]} s), "
+        f"post-process on a worker thread {ips(ovl):.2f} im/s "
+        f"({loop[True]} s); every run wrote the same bytes")
+    log(f"  prefetch only (read and pack on 8 threads): "
+        f"{ips(prefetch_s):.2f} im/s")
+    log(f"  detect only on the same batches: {ips(detect_s):.2f} im/s "
+        f"({detect_s * 1e3 / nb:.2f} ms per batch)")
+    log(f"  host post-process (hill climbing on): "
+        f"{post_s * 1e3 / n:.3f} ms per image")
+    log(f"  AP pass over {n} images: " + ", ".join(
+        f"{e} {ap_s[e]:.3f} s" for e in engines) + "; engines that ran: "
+        + ", ".join(engines) + " (gt as detections: 100.0 on every Car "
+        "metric on each); devkit oracle: " + (
+            "100.0 on every Car metric" if oracle is not None
+            else "not built (no g++)"))
+    log(f"  sparse pre-NMS at bs=1 ({n_pos} confident positions, budget "
+        f"{m_pos}): dense {sp_ms['dense']} ms, sparse {sp_ms['sparse']} ms "
+        "per call; kept rows identical")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -429,6 +699,7 @@ def main() -> int:
     totals, max_err = phase_kernel_vs_plain(torch.device("cuda"))
     launches = phase_detect(label)
     phase_card_vs_cpu()
+    launches += phase_eval(label)
 
     # the kernel's numbers summed over one forward of each size: the
     # 384x1280 bs=1 and the 512x1760 bs=8 neck, 8 layers each

@@ -133,7 +133,10 @@ class Config:
     nms_thres: float = 0.4
     clip_boxes: bool = False
     score_thres: float = 0.75
-    # sparse pre-NMS compaction budget (0 = off; not yet in the port)
+    # sparse pre-NMS compaction budget in anchors (0 = off): NMS runs only
+    # over the anchors of positions whose best score clears score_thres
+    # (inference/detect.py _compact_positions); exact for the rows the
+    # result writer keeps
     nms_sparse_topm: int = 0
     # stop the sequential NMS selection once the best remaining score drops
     # below score_thres (ops/nms.py nms_select_t stop_below). Exact for every
@@ -141,8 +144,8 @@ class Config:
     # sub-threshold rows, and a sub-threshold box can never suppress a
     # higher-scoring one.
     nms_score_stop: bool = True
-    # bitmask NMS over compacted candidates; engages only with
-    # nms_sparse_topm > 0 (not yet in the port)
+    # bitmask NMS over compacted candidates (ops/nms.py
+    # nms_bitmask_select_t); engages only with nms_sparse_topm > 0
     nms_bitmask: bool = True
 
     test_protocol: str = "kitti"
