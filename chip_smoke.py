@@ -165,9 +165,10 @@ def shift_dcn_inputs(B, H, W, C, Cout, dtype, device, seed, clamp=1.0):
 
 def phase_kernel_vs_plain(device):
     """The shift-DCN kernels against their plain version at the neck shapes
-    of one 384x1280 image and of a 512x1760 batch of 8, and at odd and
-    ragged shapes, in float32 (CUDA-core kernel) and bfloat16 (tensor-core
-    kernel). Returns the bf16 sums over each forward's 8 layers:
+    of one 384x1280 image, of a 384x1280 batch of 8 (the eval run's) and of
+    a 512x1760 batch of 8, and at odd and ragged shapes, in float32
+    (CUDA-core kernel) and bfloat16 (tensor-core kernel). Returns the bf16
+    sums over each of the three forwards' 8 layers:
     {run: {ms, plain_ms, bound_ms, bytes_ms, ops_ms}}, and the largest
     bf16 max|diff|."""
     from m3dssd_tpu_torch.ops import dcn as tdcn
@@ -178,6 +179,7 @@ def phase_kernel_vs_plain(device):
     sms = dcn_cuda.num_sms(device)
     # (forward it belongs to, (B, H, W, Cin, Cout), clamp, layers it stands for)
     cases = ([("384x1280 bs=1", (1,) + s, 1.0, 1) for s in NECK_SHAPES_384]
+             + [("384x1280 bs=8", (8,) + s, 1.0, 1) for s in NECK_SHAPES_384]
              + [("512x1760 bs=8", (8,) + s[:4], 1.0, s[4])
                 for s in NECK_SHAPES_512]
              + [("odd", ODD_SHAPE, c, 0) for c in ODD_CLAMPS]
@@ -409,44 +411,99 @@ EVAL_CROP = (384, 1280)
 EVAL_IMAGES = 64
 EVAL_BATCH = 8
 EVAL_IM = (375, 1242)
-# anchors per image whose Car score clears score_thres once the Car logit
-# is raised: a trained detector leaves a handful of confident detections
-# per image, not one per anchor
-EVAL_ANCHORS_ABOVE = 100
+# bisection steps on the Car bias that sets the detections per image
+EVAL_BISECT_STEPS = 7
 # the sparse pre-NMS budget (anchors) of the bs=1 comparison
 SPARSE_TOPM = 8192
 
 
-def confident_cars(model, conf, images):
+def confident_cars(model, conf, batches, detect, target):
     """Turn the random-weight detector into one that, like a trained one,
-    finds the background almost everywhere and a few confident cars: raise
-    the background logit (`bias_background`), widen the Car logit's spread
-    across anchors to about 1 (at init it is nearly constant), and raise it
-    by one bias chosen on `images` so that about EVAL_ANCHORS_ABOVE anchors
-    per image score at least conf.score_thres. Returns the Car bias."""
+    finds the background almost everywhere and a car about where the
+    split has one: raise the background logit (`bias_background`), widen
+    the Car logit's spread across anchors to about 1 (at init it is nearly
+    constant), and bisect one Car bias until `detect` keeps about `target`
+    detections per image at or above conf.score_thres over `batches` (the
+    split's gt objects per image). Returns (Car bias, detections per
+    image at it)."""
     from m3dssd_tpu_torch.models import bias_background
 
     C = conf.num_classes
     conv = model.cls_tower.Conv_2
     bias_background(model, C, 4.0)
 
-    def car_logits():
+    def car_logits(images):
         with torch.inference_mode():
             cls = model(images, packed=True)["cls"].float()    # [B, N, C]
         others = torch.cat([cls[..., :1], cls[..., 2:]], -1)
         return cls[..., 1], cls[..., 1] - torch.logsumexp(others, -1)
 
-    car, _ = car_logits()
+    car, _ = car_logits(batches[0])
     with torch.no_grad():
         conv.weight[1::C] *= 1.0 / float(car.std())
-    _, margin = car_logits()
-    q = 1.0 - EVAL_ANCHORS_ABOVE / margin.shape[1]
+    _, margin = car_logits(batches[0])
+    margin = margin.flatten().cpu()
     t = conf.score_thres
-    bias = math.log(t / (1.0 - t)) - float(
-        torch.quantile(margin.flatten().cpu(), q))
-    with torch.no_grad():
-        conv.bias[1::C] += bias
-    return bias
+    N = margin.numel() // batches[0].shape[0]
+
+    def bias_for(k):    # about k anchors per image score at least t
+        return math.log(t / (1.0 - t)) - float(
+            torch.quantile(margin, 1.0 - k / N))
+
+    base = conv.bias[1::C].clone()
+    sfs = torch.ones(batches[0].shape[0], device=batches[0].device)
+
+    def per_image(bias):
+        with torch.no_grad():
+            conv.bias[1::C] = base + bias
+        kept = sum(int((detect(imb, sfs)[..., 4] >= t).sum())
+                   for imb in batches)
+        return kept / sum(imb.shape[0] for imb in batches)
+
+    lo, hi = bias_for(0.25), bias_for(100.0)
+    for _ in range(EVAL_BISECT_STEPS):
+        mid = 0.5 * (lo + hi)
+        if per_image(mid) < target:
+            lo = mid
+        else:
+            hi = mid
+    return hi, per_image(hi)
+
+
+def eval_setup(device):
+    """The eval run's inputs: the flagship (bf16, seeded random weights,
+    perturbed neck offsets) at EVAL_CROP, an in-memory synthetic split of
+    EVAL_IMAGES images of EVAL_IM, its batches packed and on the card, and
+    a packed-input batch detector tuned by `confident_cars` to keep as
+    many detections per image as the split has gt objects."""
+    from types import SimpleNamespace
+
+    from m3dssd_tpu_torch.anchors import locate_anchors
+    from m3dssd_tpu_torch.config import flagship_conf
+    from m3dssd_tpu_torch.data.synthetic import SyntheticEvalSet
+    from m3dssd_tpu_torch.inference import test_driver as drv
+    from m3dssd_tpu_torch.inference.detect import make_batch_detector
+    from m3dssd_tpu_torch.models import build
+
+    device = torch.device(device)
+    B, n = EVAL_BATCH, EVAL_IMAGES
+    conf = flagship_conf(EVAL_CROP)
+    data = SyntheticEvalSet(conf, n, seed=5, imW=EVAL_IM[1], imH=EVAL_IM[0])
+    gt_per_image = sum(len(data.labels(i)) for i in range(n)) / n
+    model = perturb_neck_offsets(build(conf, device=device, seed=0), seed=1)
+    rois = locate_anchors(conf.anchors, conf.feat_size, conf.feat_stride)
+    pack = drv._packer(conf, packed_input=True, pin=device.type == "cuda")
+    batches = [torch.cat([pack(data[i]["input"]) for i in range(s, s + B)])
+               .to(device) for s in range(0, n, B)]
+    detect = make_batch_detector(conf, rois, model, packed_input=True,
+                                 device=device)
+    car_bias, det_per_image = confident_cars(model, conf, batches, detect,
+                                             gt_per_image)
+    return SimpleNamespace(
+        conf=conf, data=data, model=model, rois=rois, pack=pack,
+        batches=batches, sfs=torch.ones(B, device=device), detect=detect,
+        device=device, car_bias=car_bias, gt_per_image=gt_per_image,
+        det_per_image=det_per_image)
 
 
 def read_txts(folder):
@@ -471,43 +528,27 @@ def check_rows(txts, lbls):
 def phase_eval(label, device="cuda"):
     """The eval path: `test_kitti_3d` over an in-memory synthetic split at
     384x1280 bs=8 (bf16, packed input), result txts and AP; then the
-    loop's parts timed on the same batches, the sequential loop against
-    the one that post-processes on a worker thread, both AP engines on the
-    gt written as detections, and the sparse pre-NMS path at bs=1. Returns
-    the kernel's launches in the driver's run."""
+    driver's loop again, its parts timed on the same batches, both AP
+    engines on the gt written as detections, and the sparse pre-NMS path
+    at bs=1. Returns the kernel's launches in the driver's run.
+    `profile_eval.py` times other forms of the loop."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
 
-    from m3dssd_tpu_torch.anchors import locate_anchors
-    from m3dssd_tpu_torch.config import flagship_conf
-    from m3dssd_tpu_torch.data.synthetic import SyntheticEvalSet
     from m3dssd_tpu_torch.eval import devkit, kitti_eval, native
     from m3dssd_tpu_torch.inference import test_driver as drv
     from m3dssd_tpu_torch.inference.detect import (_compact_positions,
                                                    _sparse_nms_cfg,
                                                    make_batch_detector)
-    from m3dssd_tpu_torch.models import build
     from m3dssd_tpu_torch.ops import dcn_cuda
 
-    device = torch.device(device)
     B, n = EVAL_BATCH, EVAL_IMAGES
     t0 = time.perf_counter()
-    conf = flagship_conf(EVAL_CROP)
-    data = SyntheticEvalSet(conf, n, seed=5, imW=EVAL_IM[1], imH=EVAL_IM[0])
-    model = perturb_neck_offsets(build(conf, device=device, seed=0), seed=1)
-    rois = locate_anchors(conf.anchors, conf.feat_size, conf.feat_stride)
-    pack = drv._packer(conf, packed_input=True, pin=device.type == "cuda")
-    batches = [torch.cat([pack(data[i]["input"]) for i in range(s, s + B)])
-               .to(device) for s in range(0, n, B)]
-    sfs = torch.ones(B, device=device)
-    car_bias = confident_cars(model, conf, batches[0])
-    detect = make_batch_detector(conf, rois, model, packed_input=True,
-                                 device=device)
-    detect(batches[0], sfs)
+    ev = eval_setup(device)
+    conf, data, detect, sfs = ev.conf, ev.data, ev.detect, ev.sfs
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
 
-    out = {}
     with tempfile.TemporaryDirectory() as tmp:
         gt = data.write_labels(os.path.join(tmp, "gt"))
         results = os.path.join(tmp, "results")
@@ -533,7 +574,7 @@ def phase_eval(label, device="cuda"):
         # host post-process alone
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        dets = [detect(imb, sfs) for imb in batches]
+        dets = [detect(imb, sfs) for imb in ev.batches]
         torch.cuda.synchronize()
         detect_s = time.perf_counter() - t0
         arrs = [d.cpu().numpy() for d in dets]
@@ -557,24 +598,21 @@ def phase_eval(label, device="cuda"):
         # 8 threads
         with ThreadPoolExecutor(max_workers=8) as pool:
             t0 = time.perf_counter()
-            packed = list(pool.map(lambda i: pack(data[i]["input"]),
+            packed = list(pool.map(lambda i: ev.pack(data[i]["input"]),
                                    range(n)))
             prefetch_s = time.perf_counter() - t0
         del packed
 
-        # the sequential loop (the driver's) against the one that
-        # post-processes on a worker thread, in turns; every run writes the
-        # same bytes
-        loop = {True: [], False: []}
-        for i, overlap in enumerate((False, True, True, False)):
+        # the driver's loop twice more, warm; every run writes the same
+        # bytes
+        loop_s = []
+        for i in range(2):
             d = os.path.join(tmp, f"loop{i}")
             os.makedirs(d)
             t0 = time.perf_counter()
-            drv._run_batched(data, detect, conf, d, B, pack, device,
-                             overlap=overlap)
-            loop[overlap].append(time.perf_counter() - t0)
-            check(read_txts(d) == txts, "eval: the overlapped loop wrote "
-                  "other bytes" if overlap else "eval: the sequential loop "
+            drv._run_batched(data, detect, conf, d, B, ev.pack, ev.device)
+            loop_s.append(time.perf_counter() - t0)
+            check(read_txts(d) == txts, "eval: a second run of the loop "
                   "wrote other bytes")
 
         # AP: the pass over the results, and the gt as detections (100 on
@@ -615,16 +653,18 @@ def phase_eval(label, device="cuda"):
             check("Car_box3d_R40" in oracle and not bad,
                   f"eval: devkit oracle on the gt as detections: {bad}")
 
-    # the sparse pre-NMS path at bs=1 against the dense path
+    # the sparse pre-NMS path at bs=1 against the dense path, on the first
+    # batch's image with the most detections
     conf_sp = conf.replace(nms_sparse_topm=SPARSE_TOPM)
-    m_pos, A, thresh = _sparse_nms_cfg(conf_sp, rois)
-    img, sf1 = batches[0][:1], torch.ones(1, device=device)
-    det1 = make_batch_detector(conf, rois, model, packed_input=True,
-                               device=device)
-    det_sp = make_batch_detector(conf_sp, rois, model, packed_input=True,
-                                 device=device)
+    m_pos, A, thresh = _sparse_nms_cfg(conf_sp, ev.rois)
+    j = int((arrs[0][..., 4] >= thresh).sum(-1).argmax())
+    img, sf1 = ev.batches[0][j:j + 1], torch.ones(1, device=ev.device)
+    det1 = make_batch_detector(conf, ev.rois, ev.model, packed_input=True,
+                               device=ev.device)
+    det_sp = make_batch_detector(conf_sp, ev.rois, ev.model,
+                                 packed_input=True, device=ev.device)
     with torch.inference_mode():
-        scores = model(img, packed=True)["scores"].float()
+        scores = ev.model(img, packed=True)["scores"].float()
     posmax = scores.reshape(1, -1, A).amax(-1)
     n_pos = int((posmax >= thresh).sum())
     check(bool(_compact_positions(scores, A, thresh, m_pos)[1].all()),
@@ -641,19 +681,18 @@ def phase_eval(label, device="cuda"):
         sp_ms[kind].append(cuda_ms(lambda: det(img, sf1), 10, warmup=2))
 
     ips = lambda s: n / s
-    ovl, seq = (sum(loop[k]) / 2 for k in (True, False))
     log(f"eval {EVAL_CROP[0]}x{EVAL_CROP[1]} bs={B}, {n} synthetic "
-        f"{EVAL_IM[0]}x{EVAL_IM[1]} images, packed bf16, background "
-        f"logit +4, Car logit {car_bias:+.3f} ({label}); set-up "
-        f"{setup_s:.1f} s")
+        f"{EVAL_IM[0]}x{EVAL_IM[1]} images ({ev.gt_per_image:.3f} gt "
+        f"objects per image), packed bf16, background logit +4, Car logit "
+        f"{ev.car_bias:+.4f} for {ev.det_per_image:.3f} detections per "
+        f"image ({label}); set-up {setup_s:.1f} s")
     log(f"  test_kitti_3d with AP: {entry_s:.3f} s, {rows} rows in {n} "
-        f"txts ({rows / n:.2f} per image), {climbed} rows moved by hill "
+        f"txts ({rows / n:.3f} per image), {climbed} rows moved by hill "
         f"climbing; Car_3d_R40 {res['Car_3d_R40']}; launches {launches} "
         f"({launches // nb} per batch)")
-    log(f"  whole loop (prefetch, upload, detect, post-process, write): "
-        f"sequential (the driver's) {ips(seq):.2f} im/s ({loop[False]} s), "
-        f"post-process on a worker thread {ips(ovl):.2f} im/s "
-        f"({loop[True]} s); every run wrote the same bytes")
+    log(f"  whole loop (prefetch, upload, detect, post-process, write), "
+        f"warm: {', '.join(f'{ips(s):.2f}' for s in loop_s)} im/s "
+        f"({loop_s} s); every run wrote the same bytes")
     log(f"  prefetch only (read and pack on 8 threads): "
         f"{ips(prefetch_s):.2f} im/s")
     log(f"  detect only on the same batches: {ips(detect_s):.2f} im/s "
@@ -667,8 +706,8 @@ def phase_eval(label, device="cuda"):
             "100.0 on every Car metric" if oracle is not None
             else "not built (no g++)"))
     log(f"  sparse pre-NMS at bs=1 ({n_pos} confident positions, budget "
-        f"{m_pos}): dense {sp_ms['dense']} ms, sparse {sp_ms['sparse']} ms "
-        "per call; kept rows identical")
+        f"{m_pos}, {keep_a.shape[0]} kept rows): dense {sp_ms['dense']} ms, "
+        f"sparse {sp_ms['sparse']} ms per call; kept rows identical")
     return launches
 
 
@@ -702,7 +741,8 @@ def main() -> int:
     launches += phase_eval(label)
 
     # the kernel's numbers summed over one forward of each size: the
-    # 384x1280 bs=1 and the 512x1760 bs=8 neck, 8 layers each
+    # 384x1280 bs=1 and bs=8 (the eval run's) and the 512x1760 bs=8 neck,
+    # 8 layers each
     fwd = {k: sum(t[k] for t in totals.values())
            for k in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
     kernels = [{

@@ -100,20 +100,15 @@ def _packer(conf, packed_input: bool, pin: bool):
 
 
 def _run_batched(dataset, detect, conf, results_path: str, batch_size: int,
-                 pack, device: torch.device, prefetch_workers: int = 8,
-                 overlap: bool = False):
+                 pack, device: torch.device, prefetch_workers: int = 8):
     """The eval loop. Prefetch threads read and pack images; the main
     thread uploads each batch (tail padded by repeating its last image;
     the padding's rows are dropped), detects, brings the [B, K, 14] table
     to the host, post-processes it and writes its files.
 
-    With `overlap` a worker thread post-processes and writes batch k while
-    the main thread detects batch k+1, as the JAX driver's asynchronous
-    dispatch does. On the H100 that form is the slower one (PERF.md): the
-    post-process and the detector's op dispatch both hold the interpreter
-    lock, so they take turns. It stays so that `chip_smoke.py` can measure
-    the two against each other; the written files are the same either
-    way."""
+    The post-process stays on the main thread: on the H100 a worker thread
+    that post-processes batch k while batch k+1 is detected measured slower
+    (PERF.md), since both hold the interpreter lock."""
     n = len(dataset)
     B = max(int(batch_size), 1)
 
@@ -121,20 +116,11 @@ def _run_batched(dataset, detect, conf, results_path: str, batch_size: int,
         s = dataset[i]
         return pack(s["input"]), float(s["meta"]["scale_factor"]), s["meta"]
 
-    def flush(arr, metas):
-        for j, meta in enumerate(metas):
-            rows = postprocess_dets(conf, arr[j], meta["p2"],
-                                    np.linalg.inv(meta["p2"]))
-            write_kitti_result(os.path.join(results_path, meta["id"] + ".txt"),
-                               rows)
-
-    with ThreadPoolExecutor(max_workers=prefetch_workers) as pool, \
-            ThreadPoolExecutor(max_workers=1) as post:
+    with ThreadPoolExecutor(max_workers=prefetch_workers) as pool:
         # at most ~2 batches of loaded images in flight
         window = max(2 * B, prefetch_workers + 1)
         futures = deque(pool.submit(load, i) for i in range(min(window, n)))
         next_i = len(futures)
-        pending = None
         for start in range(0, n, B):
             ims, sfs, metas = [], [], []
             for _ in range(min(B, n - start)):
@@ -154,14 +140,11 @@ def _run_batched(dataset, detect, conf, results_path: str, batch_size: int,
             sfb = torch.tensor(sfs, dtype=torch.float32).to(device)
             dets = detect(imb, sfb)
             arr = dets.reshape(B, -1, dets.shape[-1]).cpu().numpy()
-            if not overlap:
-                flush(arr, metas)
-                continue
-            if pending is not None:
-                pending.result()
-            pending = post.submit(flush, arr, metas)
-        if pending is not None:
-            pending.result()
+            for j, meta in enumerate(metas):
+                rows = postprocess_dets(conf, arr[j], meta["p2"],
+                                        np.linalg.inv(meta["p2"]))
+                write_kitti_result(
+                    os.path.join(results_path, meta["id"] + ".txt"), rows)
 
 
 def test_kitti_3d(dataset, detect, conf, results_path: str,
