@@ -6,9 +6,10 @@ Builds the hand-written kernels from `m3dssd_tpu_torch/csrc/`, holds each
 against its plain PyTorch version at the shapes the flagship detector gives
 it, drives the flagship detector (kitti_3d_anab_fullalign on DLA-102, bf16,
 seeded random weights) through `build` and `make_batch_detector` at full
-width, checks that every kernel of that path launched, and compares a card
-run of the whole detector with a CPU run of the same weights. Any failed
-check ends the run with a non-zero exit code.
+width, checks that every kernel of that path launched, compares a card run of
+the whole detector with a CPU run of the same weights, and runs the KITTI
+eval path (`test_kitti_3d` over an in-memory synthetic split, result txts
+and AP). Any failed check ends the run with a non-zero exit code.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
