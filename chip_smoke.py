@@ -2,14 +2,21 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written kernels from `m3dssd_tpu_torch/csrc/`, holds each
-against its plain PyTorch version at the shapes the flagship detector gives
-it, drives the flagship detector (kitti_3d_anab_fullalign on DLA-102, bf16,
-seeded random weights) through `build` and `make_batch_detector` at full
-width, checks that every kernel of that path launched, compares a card run of
-the whole detector with a CPU run of the same weights, and runs the KITTI
-eval path (`test_kitti_3d` over an in-memory synthetic split, result txts
-and AP). Any failed check ends the run with a non-zero exit code.
+Builds the hand-written kernels from `m3dssd_tpu_torch/csrc/` (one nvcc per
+source, in parallel), holds each against its plain PyTorch version at the
+shapes the flagship gives it (the shift-DCN forward, and its three backward
+kernels at the shapes of a train step), drives the flagship detector
+(kitti_3d_anab_fullalign on DLA-102, bf16, seeded random weights) through
+`build` and `make_batch_detector` at full width, compares a card run of the
+whole detector with a CPU run of the same weights, runs the KITTI eval path
+(`test_kitti_3d` over an in-memory synthetic split, result txts and AP),
+trains the flagship at 384x1280 bs=8 bf16 (`build(phase="train")`,
+`TrainLoader`, `make_train_step`, one `Trainer` epoch with snapshot,
+restore and eval), and compares one train step on the card with a float64
+step on the CPU, and that step's DCN backward calls with the float64
+plain backward on the same operands. Every kernel's launch count is set to 0
+before a main-path run and read after it. Any failed check ends the run
+with a non-zero exit code.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -97,12 +104,17 @@ def ptxas_summary(report):
     """One line per kernel from nvcc's -Xptxas -v report: registers,
     spills and stack; warnings and errors verbatim."""
     out, name = {}, None
-    kernel = re.compile(r"Compiling entry function '\S*(dcn_shift_(?:"
-                        r"bf16_wgmma|splitk_reduce|fwd)_kernel)(ILi(\d)E)?")
+    kernel = re.compile(r"Compiling entry function '\S*?(dcn_shift_\w*?"
+                        r"_kernel)([^']*)'")
     for line in report.splitlines():
         m = kernel.search(line)
         if m:
-            name = m.group(1) + (f"<R={m.group(3)}>" if m.group(3) else "")
+            tail = m.group(2)
+            r = re.search(r"Li(\d)E", tail)
+            args = ([("bf16" if "bfloat16" in tail else "f32")]
+                    if "bwd" in m.group(1) else []) \
+                + ([f"R={r.group(1)}"] if r else [])
+            name = m.group(1) + (f"<{','.join(args)}>" if args else "")
             out[name] = []
         elif name and ("spill" in line or "registers" in line):
             out[name].append(line.split(":", 1)[-1].strip())
@@ -712,6 +724,573 @@ def phase_eval(label, device="cuda"):
     return launches
 
 
+# --------------------------------------------------------------------------
+# the shift-DCN backward kernels (csrc/dcn_shift_bwd.cu)
+# --------------------------------------------------------------------------
+
+# kernel vs plain, relative to the largest magnitude of each gradient:
+# float32 differs by summation order; bfloat16 also by where the sums
+# round to bf16 (the plain columns and dx after every shifted MAC, the
+# kernels once per element) and by cuBLAS's rounding of gk
+BWD_TOL = {torch.float32: {"dx": 1e-4, "doffset": 1e-4, "dmask": 1e-4,
+                           "dweight": 1e-4},
+           torch.bfloat16: {"dx": 3e-2, "doffset": 5e-2, "dmask": 5e-2,
+                            "dweight": 5e-2}}
+# share of offsets drawn exactly on a kink: 0, the knots +-1, +-clamp
+TIE_SHARE = 0.3
+BWD_KERNELS = ("cols", "data", "coord")
+
+
+def bwd_inputs(B, H, W, C, Cout, dtype, device, seed, clamp):
+    """Inputs of one backward call: x, offset (TIE_SHARE of them exactly
+    on a kink), mask, weight and the output cotangent g."""
+    x, off, mask, w, _ = shift_dcn_inputs(B, H, W, C, Cout, dtype, "cpu",
+                                          seed, clamp)
+    g = torch.Generator(device="cpu").manual_seed(seed + 1000)
+    kinks = torch.tensor([0.0, 1.0, -1.0, clamp, -clamp])
+    pick = torch.rand(off.shape, generator=g) < TIE_SHARE
+    which = torch.randint(0, len(kinks), off.shape, generator=g)
+    off = torch.where(pick, kinks[which], off)
+    gout = torch.randn(B, H, W, Cout, generator=g).to(dtype)
+    return (x.to(device), off.to(device), mask.to(device), w.to(device),
+            gout.to(device))
+
+
+def bwd_bounds(B, H, W, C, Cout, dtype, off, clamp, K=3):
+    """{kernel: (ms the bytes need, ms the operations need)} for one call:
+    inputs read once, outputs written once; 2 operations per multiply-add
+    on the float32 CUDA cores. cols and data skip the knots that carry no
+    weight, so their operations are counted from this call's offsets."""
+    es = torch.finfo(dtype).bits // 8
+    KK, P = K * K, B * H * W
+    R = math.ceil(clamp)
+    o = off.float().clamp(-clamp, clamp)
+    knots = torch.arange(-R, R + 1, device=off.device, dtype=torch.float32)
+    nz = (1.0 - (o[..., None] - knots).abs() > 0).sum(-1)    # [B,H,W,KK,2]
+    terms = float((nz[..., 0] * nz[..., 1]).sum())
+    col = P * KK * C * es
+    small = P * KK * 3 * 4                                   # offset, mask
+    ops = {"cols": 2.0 * terms * C, "data": 2.0 * terms * C,
+           "coord": 2.0 * P * KK * (2 * R + 1) ** 2 * C}
+    nbytes = {"cols": P * C * es + small + col,
+              "data": col + small + P * C * es,
+              "coord": P * C * es + col + small + P * KK * 3 * 4}
+    return {k: (nbytes[k] / PEAK_BYTES * 1e3,
+                ops[k] / PEAK_FLOPS[torch.float32] * 1e3) for k in ops}
+
+
+def phase_bwd_vs_plain(device):
+    """The three backward kernels and the whole backward against their
+    plain versions at the 8 neck shapes of a 384x1280 bs=8 batch and at the
+    odd and ragged cases, at clamp 1.0 and 1.5, in float32 and bfloat16.
+    Returns the bf16 sums over the 8 neck layers ({kernel: {ms, plain_ms,
+    bound_ms, bytes_ms, ops_ms}}, the products' ms) and the largest bf16
+    max|kernel - plain| of each kernel's output."""
+    from m3dssd_tpu_torch.ops import dcn as tdcn
+    from m3dssd_tpu_torch.ops import dcn_cuda as dc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cases = ([("neck", (8,) + s, 1.0) for s in NECK_SHAPES_384]
+             + [("odd", ODD_SHAPE, c) for c in ODD_CLAMPS]
+             + [("ragged", s, c) for s, c in RAGGED_CASES]
+             + [("neck c1.5", (8,) + NECK_SHAPES_384[4], 1.5)])
+    keys = ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")
+    totals = {k: dict.fromkeys(keys, 0.0) for k in BWD_KERNELS}
+    prod_ms = 0.0
+    max_err = dict.fromkeys(BWD_KERNELS, 0.0)
+    log("shift-DCN backward kernels vs plain (B,H,W,Cin->Cout clamp dtype: "
+        "rel. max|diff| of dx doffset dmask dW; per kernel ms / plain ms / "
+        "bound ms / share of bound; products ms)")
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for i, (kind, (B, H, W, C, Co), clamp) in enumerate(cases):
+            x, off, mask, w, g = bwd_inputs(B, H, W, C, Co, dtype, device,
+                                            seed=100 + i, clamp=clamp)
+            got = dc.dcn_v2_shift_backward_cuda(x, off, mask, w, g,
+                                                clamp=clamp)
+            want = tdcn.dcn_v2_shift_backward_reference(x, off, mask, w, g,
+                                                        clamp=clamp)
+            torch.cuda.synchronize()
+            errs = []
+            for gname, a, b in zip(("dx", "doffset", "dmask", "dweight"),
+                                   got, want):
+                scale = float(b.float().abs().max())
+                err = float((a.float() - b.float()).abs().max()) \
+                    / max(scale, 1e-12)
+                check(math.isfinite(err) and err <= BWD_TOL[dtype][gname],
+                      f"backward {gname} disagrees with plain at "
+                      f"{(B, H, W, C, Co)} clamp {clamp} {name}: relative "
+                      f"max|diff| {err} (scale {scale})")
+                errs.append(err)
+            del got, want
+            g2 = g.reshape(-1, Co)
+            w2 = w.reshape(-1, Co)
+            gk = torch.matmul(g2, w2.t())
+            col = dc.dcn_shift_bwd_cols_cuda(x, off, mask, clamp=clamp)
+            big = kind.startswith("neck")
+            it_k, it_p = (10, 2) if big else (20, 5)
+            runs = {
+                "cols": (lambda: dc.dcn_shift_bwd_cols_cuda(
+                    x, off, mask, clamp=clamp),
+                    lambda: tdcn.shift_columns_reference(
+                        x, off, mask, clamp=clamp)),
+                "data": (lambda: dc.dcn_shift_bwd_data_cuda(
+                    gk, off, mask, x.shape, clamp=clamp),
+                    lambda: tdcn.shift_dx_reference(
+                        gk, off, mask, x.shape, clamp=clamp)),
+                "coord": (lambda: dc.dcn_shift_bwd_coord_cuda(
+                    x, gk, off, mask, clamp=clamp),
+                    lambda: tdcn.shift_coord_reference(
+                        x, gk, off, mask, clamp=clamp)),
+            }
+            bounds = bwd_bounds(B, H, W, C, Co, dtype, off, clamp)
+            parts = []
+            for k, (kern, plain) in runs.items():
+                ka, pa = kern(), plain()
+                ka = ka if isinstance(ka, tuple) else (ka,)
+                pa = pa if isinstance(pa, tuple) else (pa,)
+                abs_err = max(float((u.float() - v.float()).abs().max())
+                              for u, v in zip(ka, pa))
+                if dtype == torch.bfloat16:
+                    max_err[k] = max(max_err[k], abs_err)
+                del ka, pa
+                k_ms = cuda_ms(kern, it_k, warmup=2)
+                p_ms = cuda_ms(plain, it_p, warmup=1)
+                t_b, t_o = bounds[k]
+                bound = max(t_b, t_o)
+                parts.append(f"{k} {k_ms:.4f}/{p_ms:.4f}/{bound:.4f}/"
+                             f"{bound / k_ms:.3f}")
+                if dtype == torch.bfloat16 and kind == "neck":
+                    t = totals[k]
+                    for key, v in (("ms", k_ms), ("plain_ms", p_ms),
+                                   ("bound_ms", bound), ("bytes_ms", t_b),
+                                   ("ops_ms", t_o)):
+                        t[key] += v
+            m_ms = cuda_ms(lambda: (torch.matmul(g2, w2.t()),
+                                    torch.matmul(col.t(), g2)), it_k,
+                           warmup=2)
+            if dtype == torch.bfloat16 and kind == "neck":
+                prod_ms += m_ms
+            log(f"  {B},{H},{W},{C}->{Co} {clamp} {name}: "
+                + " ".join(f"{e:.2e}" for e in errs) + "; "
+                + "; ".join(parts) + f"; products {m_ms:.4f}")
+            del x, off, mask, w, g, gk, col
+    for k, t in totals.items():
+        log(f"  one 384x1280 bs=8 backward's 8 neck layers, bf16, {k}: "
+            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({'bytes' if t['bytes_ms'] > t['ops_ms'] else 'operations'}), "
+            f"share of bound {t['bound_ms'] / t['ms']:.4f}")
+    log(f"  the products gk = g W^T and dW = col^T g (cuBLAS, bf16) over the "
+        f"8 layers: {prod_ms:.4f} ms")
+    torch.cuda.empty_cache()
+    return totals, prod_ms, max_err
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+TRAIN_CROP = (384, 1280)
+TRAIN_BATCH = 8
+TRAIN_SCENES = 64
+TRAIN_IM = (375, 1242)
+# steps on one fixed batch for the falling-loss check, and the learning
+# rate they use (the flagship's, no warmup). From random weights the loss
+# first overshoots for a few steps (float32 on the CPU too), then falls:
+# the check holds the mean of the last 3 steps against the first
+FIXED_STEPS = 20
+FIXED_LR = 0.002
+# card (kernels, float32, TF32 off) against the CPU (plain, float64) after
+# one train step of dla34 at 128x448 from zero-initialised DCN offsets,
+# without weight decay, so each update is -lr times the gradient. Each
+# tensor's update is compared with its own largest float64 update. The step
+# is not smooth at float32 rounding's scale: the align modules' selections
+# and the activations' kinks flip when the input moves by 1e-6, and the
+# float64 step then moves by a median 4.5e-3 of each tensor's own update,
+# 1.6e-1 in the worst tensor and 1.7e-2 of the largest update, its loss by
+# 8.8e-6 (profile_train_noise.py). So the whole step is held by the median
+# over tensors, against the largest update, and every tensor against a
+# gross error; the 8 DCN layers' operand gradients, a smooth function of
+# the operands the card step gave them, are held per tensor against the
+# float64 plain backward. Each limit is about 2-3x the larger of the card's
+# reading and the perturbed float64 step's (PERF.md gives both).
+TRAIN_CPU_CROP = (128, 448)
+TRAIN_CPU_TOL = {"loss": 3e-5, "bn_stats": 1e-4, "update_median": 1e-2,
+                 "update_largest": 3e-2, "update_each": 0.5,
+                 "dcn_grads": 1e-5}
+
+
+def train_conf(crop, batch, dtype="bfloat16", backbone="dla102",
+               num_scales=12):
+    """The flagship's train configuration at `crop`: its anchors and
+    whitening stats are left to the train split."""
+    from m3dssd_tpu_torch.config import flagship_conf
+
+    return flagship_conf(crop, num_scales=num_scales, backbone=backbone,
+                         dtype=dtype).replace(
+        anchors=None, bbox_means=None, bbox_stds=None, batch_size=batch)
+
+
+def bwd_counts():
+    from m3dssd_tpu_torch.ops import dcn_cuda
+
+    return {"forward": dcn_cuda.launches, **dcn_cuda.bwd_launches}
+
+
+def reset_counts():
+    from m3dssd_tpu_torch.ops import dcn_cuda
+
+    dcn_cuda.launches = 0
+    for k in dcn_cuda.bwd_launches:
+        dcn_cuda.bwd_launches[k] = 0
+
+
+def sync_s(fn):
+    """(result, host seconds) of fn() bracketed by synchronisations."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_train(label):
+    """The flagship's train path at 384x1280 bs=8 bf16 with packed input:
+    TrainLoader over an in-memory synthetic split, make_train_step, a
+    falling loss over FIXED_STEPS steps on one batch, the step's time split,
+    then one Trainer epoch with snapshot, restore and eval. Returns the
+    kernels' launches {forward, cols, data, coord} over the phase's runs."""
+    import tempfile
+
+    from m3dssd_tpu_torch.data.loader import TrainLoader
+    from m3dssd_tpu_torch.data.synthetic import (SyntheticEvalSet,
+                                                 SyntheticTrainSet)
+    from m3dssd_tpu_torch.inference import test_driver as drv
+    from m3dssd_tpu_torch.losses.rpn_loss import RPNLossConfig, rpn_3d_loss
+    from m3dssd_tpu_torch.models import build
+    from m3dssd_tpu_torch.models.layers import BatchNorm2d
+    from m3dssd_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+    from m3dssd_tpu_torch.train.trainer import Trainer
+    from m3dssd_tpu_torch.utils.checkpoint import (latest_step,
+                                                   restore_checkpoint)
+
+    B = TRAIN_BATCH
+    t0 = time.perf_counter()
+    conf = train_conf(TRAIN_CROP, B).replace(warmup=0.0, lr=FIXED_LR)
+    ds = SyntheticTrainSet(conf, TRAIN_SCENES, seed=7, imW=TRAIN_IM[1],
+                           imH=TRAIN_IM[0])
+    data_s = time.perf_counter() - t0
+    loader = TrainLoader(ds, B, num_workers=8, seed=0, pack_s2d=True)
+    t0 = time.perf_counter()
+    batches = list(loader.batches(4))
+    loader_ips = 4 * B / (time.perf_counter() - t0)
+    check(batches[0]["images"].dtype == torch.bfloat16
+          and tuple(batches[0]["images"].shape)
+          == (B, TRAIN_CROP[0] // 2, TRAIN_CROP[1] // 2, 12)
+          and batches[0]["images"].is_pinned(), "loader batch layout")
+
+    model = build(conf, seed=0, phase="train")
+    check(all(p.dtype == torch.float32 and p.requires_grad
+              for p in model.parameters()), "train build: master weights")
+    state = create_train_state(conf, model, max_iter=10 ** 6)
+    check(abs(state.optimizer.lr() - FIXED_LR) < 1e-9,
+          f"lr {state.optimizer.lr()}")
+    step = make_train_step(conf, ds.rois, packed_input=True)
+    launches = dict.fromkeys(("forward",) + BWD_KERNELS, 0)
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(batch):
+        reset_counts()
+        stats = step(state, batch)
+        loss = float(stats["loss"])
+        n = bwd_counts()
+        for k in launches:
+            launches[k] += n[k]
+        check(all(v == 8 for v in n.values()),
+              f"train step launched {n}, expected 8 of each kernel")
+        check(math.isfinite(loss), f"train step loss {loss}")
+        return loss
+
+    # finite gradients: one step's grads read before the update
+    params = state.params()
+    out = model(batches[0]["images"].cuda(), packed=True)
+    loss, _ = rpn_3d_loss(out, {k: v.cuda() for k, v in batches[0].items()},
+                          torch.as_tensor(ds.rois[:, :5], dtype=torch.float32,
+                                          device="cuda"),
+                          torch.as_tensor(conf.anchors, dtype=torch.float32,
+                                          device="cuda"),
+                          torch.as_tensor(conf.bbox_means, device="cuda"),
+                          torch.as_tensor(conf.bbox_stds, device="cuda"),
+                          RPNLossConfig.from_conf(conf))
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    bad = [n for n, g in zip(params, grads)
+           if g is not None and not bool(torch.isfinite(g).all())]
+    check(not bad, f"non-finite gradients in {bad[:5]}")
+    unused = [n for n, g in zip(params, grads) if g is None]
+    del out, loss, grads
+
+    fixed = batches[0]
+    losses, step_s = [], []
+    for _ in range(FIXED_STEPS):
+        loss, s = sync_s(lambda: run(fixed))
+        losses.append(loss)
+        step_s.append(s)
+    check(sum(losses[-3:]) / 3 < losses[0], f"loss on a fixed batch did not "
+          f"fall: {losses}")
+    for b in batches[1:]:
+        _, s = sync_s(lambda: run(b))
+        step_s.append(s)
+    warm = sorted(step_s[2:])
+    step_ms = 1e3 * warm[len(warm) // 2]
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the step's time split, each part bracketed by synchronisations
+    b = {k: v.cuda(non_blocking=True) for k, v in batches[1].items()}
+    consts = (torch.as_tensor(ds.rois[:, :5], dtype=torch.float32,
+                              device="cuda"),
+              torch.as_tensor(conf.anchors, dtype=torch.float32,
+                              device="cuda"),
+              torch.as_tensor(conf.bbox_means, device="cuda"),
+              torch.as_tensor(conf.bbox_stds, device="cuda"))
+    cfg = RPNLossConfig.from_conf(conf)
+    split = {k: [] for k in ("forward", "loss", "backward", "optimizer")}
+    for _ in range(3):
+        out, t_f = sync_s(lambda: model(b["images"], packed=True))
+        (loss, _), t_l = sync_s(lambda: rpn_3d_loss(out, b, *consts, cfg))
+        names = state.optimizer.names
+        g, t_b = sync_s(lambda: torch.autograd.grad(
+            loss, [params[n] for n in names], allow_unused=True))
+        g = {n: torch.zeros_like(params[n]) if v is None else v
+             for n, v in zip(names, g)}
+        _, t_o = sync_s(lambda: state.optimizer.step(params, g))
+        for k, v in zip(split, (t_f, t_l, t_b, t_o)):
+            split[k].append(1e3 * v)
+        del out, loss, g
+    split = {k: sorted(v)[1] for k, v in split.items()}
+
+    log(f"train {TRAIN_CROP[0]}x{TRAIN_CROP[1]} bs={B} bf16 packed "
+        f"({label}): {TRAIN_SCENES} synthetic {TRAIN_IM[0]}x{TRAIN_IM[1]} "
+        f"scenes built in {data_s:.1f} s; {len(unused)} parameters get no "
+        "gradient" + (f" ({unused[:3]})" if unused else ""))
+    log(f"  loss over {FIXED_STEPS} steps on one batch at lr {FIXED_LR}: "
+        + ", ".join(f"{v:.4f}" for v in losses))
+    log(f"  train step (loader batch -> updated weights) median of "
+        f"{len(warm)} warm steps: {step_ms:.2f} ms = "
+        f"{B * 1e3 / step_ms:.2f} im/s; peak device memory "
+        f"{peak_gb:.2f} GiB; loader alone {loader_ips:.2f} im/s (8 threads)")
+    log("  step split (synchronised, median of 3): " + ", ".join(
+        f"{k} {v:.2f} ms" for k, v in split.items()))
+
+    # one Trainer epoch: 8 steps, a snapshot, and the eval
+    with tempfile.TemporaryDirectory() as tmp:
+        tconf = conf.replace(max_epoch=1, snapshot_epoch=1, eval_epoch=1,
+                             eval_batch_size=8, display_iter=4,
+                             warmup=1.0 / 70)
+        val = SyntheticEvalSet(tconf, 16, seed=8, imW=TRAIN_IM[1],
+                               imH=TRAIN_IM[0])
+        reset_counts()
+        t0 = time.perf_counter()
+        tr = Trainer(tconf, None, os.path.join(tmp, "run"), dataset=ds,
+                     val_dataset=val)
+        tr.run(1)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        n = bwd_counts()
+        for k in launches:
+            launches[k] += n[k]
+        check(tr.state.step == 8 and n["cols"] == 64,
+              f"trainer: {tr.state.step} steps, launches {n}")
+        wdir = os.path.join(tr.output_dir, "weights")
+        check(latest_step(wdir) == 8, f"trainer: snapshot {latest_step(wdir)}")
+        fresh = create_train_state(tconf, build(tconf, seed=1,
+                                                phase="train"), 8)
+        restore_checkpoint(wdir, fresh)
+        a, b2 = tr.state.model.state_dict(), fresh.model.state_dict()
+        check(fresh.step == 8 and a.keys() == b2.keys()
+              and all(torch.equal(a[k], b2[k]) for k in a),
+              "trainer: restored model differs")
+        oa, ob = tr.state.optimizer.state_dict(), \
+            fresh.optimizer.state_dict()
+        check(oa["count"] == ob["count"] and all(
+            torch.equal(oa["state"][k]["momentum_buffer"],
+                        ob["state"][k]["momentum_buffer"])
+            for k in oa["state"]), "trainer: restored optimizer differs")
+        res_dir = os.path.join(tr.output_dir, "results", "results_1", "data")
+        txts = read_txts(res_dir)
+        check(len(txts) == 16, f"trainer eval: {len(txts)} result txts")
+        rows = check_rows(txts, tconf.lbls)
+        check(all(math.isfinite(float(v)) for v in tr.last_stats.values()),
+              f"trainer: last step's stats {tr.last_stats}")
+        check(tr.last_eval is not None and "Car_3d_R40" in tr.last_eval,
+              "trainer eval: no AP")
+        log(f"  Trainer.run(1): {tr.state.step} steps, snapshot at step 8 "
+            f"restored bit-identically, eval wrote {len(txts)} txts "
+            f"({rows} rows), "
+            f"Car_3d_R40 {tr.last_eval['Car_3d_R40']}; {run_s:.1f} s "
+            f"with set-up; kernel launches {n}")
+
+        # what the eval saw: after 8 steps the BN running statistics are
+        # still 0.9^8 of their init, far from the batch statistics
+        pack = drv._packer(tconf, packed_input=True, pin=False)
+        x = torch.cat([pack(val[i]["input"]) for i in range(8)]).cuda()
+        ratio = []
+        hooks = [m.register_forward_hook(
+            lambda mod, inp, out: ratio.append(float(
+                (inp[0].float().var((0, 2, 3), unbiased=False)
+                 / mod.running_var).max())))
+            for m in tr.model.modules() if isinstance(m, BatchNorm2d)]
+        size = {}
+        with torch.no_grad():
+            for mode in ("eval", "train"):   # train mode last: it moves stats
+                getattr(tr.model, mode)()
+                out = tr.model(x, packed=True)
+                for h in hooks:
+                    h.remove()
+                hooks = []
+                size[mode] = max(float(out[k].float().abs().max())
+                                 for k in ("bbox_2d", "bbox_3d"))
+                check(math.isfinite(size[mode]),
+                      f"trainer model in {mode} mode: non-finite boxes")
+        log(f"  after 8 steps, at 8 eval images: a BN input's batch "
+            f"variance up to {max(ratio):.2f}x its running variance; "
+            f"largest box output {size['eval']:.4f} in eval mode, "
+            f"{size['train']:.4f} in train mode")
+        del tr, fresh
+    del model, state, batches
+    torch.cuda.empty_cache()
+    return launches, {"step_ms": step_ms, "im_s": B * 1e3 / step_ms,
+                      "split_ms": split, "peak_gib": peak_gb,
+                      "loader_im_s": loader_ips}
+
+
+def update_errors(after, before, ref_after, names):
+    """({name: max|d - d_ref| / max|d_ref|}, max|d - d_ref| over all
+    relative to the largest |d_ref|), d = after - before the step's update,
+    over the tensors whose reference update is at least 1e-6 of the largest:
+    the rest (conv biases before a BatchNorm) have a zero gradient."""
+    upd = {n: ref_after[n].double() - before[n].double() for n in names}
+    top = max(float(u.abs().max()) for u in upd.values())
+    own, diff = {}, 0.0
+    for n, u in upd.items():
+        size = float(u.abs().max())
+        if size < 1e-6 * top:
+            continue
+        d = float((after[n].double() - before[n].double() - u).abs().max())
+        own[n] = d / size
+        diff = max(diff, d)
+    return own, diff / top
+
+
+def phase_train_card_vs_cpu():
+    """One train step of the flagship on dla34 at 128x448 from the same
+    weights (DCN offset convs zero, so every neck offset is exactly 0) and
+    the same batch, without weight decay: on the card through the kernels
+    in float32 (TF32 off) and on the CPU through the plain ops in float64.
+    Then each of the card step's 8 DCN backward calls again on the CPU: the
+    float64 plain backward on the operands the card gave, per tensor
+    against what the kernels returned. Returns the errors."""
+    from m3dssd_tpu_torch.data.loader import TrainLoader
+    from m3dssd_tpu_torch.data.synthetic import SyntheticTrainSet
+    from m3dssd_tpu_torch.models import build
+    from m3dssd_tpu_torch.ops import dcn_cuda
+    from m3dssd_tpu_torch.ops.dcn import dcn_v2_shift_backward_reference
+    from m3dssd_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    H, W = TRAIN_CPU_CROP
+    conf = train_conf(TRAIN_CPU_CROP, 2, dtype="float32", backbone="dla34",
+                      num_scales=4).replace(warmup=0.0, weight_decay=0.0)
+    ds = SyntheticTrainSet(conf, 32, seed=9, imW=W, imH=H, min_h_px=10)
+    batch = next(TrainLoader(ds, 2, num_workers=2, seed=1, pack_s2d=True,
+                             pin=False).batches(1))
+    init = build(conf, device="cpu", seed=0, phase="train").state_dict()
+    after, stats, calls = {}, {}, []
+    real = dcn_cuda.dcn_v2_shift_backward_cuda
+
+    def spy(x, offset, mask, weight, g, *, clamp=1.0):
+        out = real(x, offset, mask, weight, g, clamp=clamp)
+        calls.append(([t.detach().cpu() for t in (x, offset, mask, weight,
+                                                   g)],
+                      [t.detach().cpu() for t in out], clamp))
+        return out
+
+    for key, dev, dtype in (("card", "cuda", torch.float32),
+                            ("cpu64", "cpu", torch.float64)):
+        model = build(conf, device=dev, seed=0, phase="train").to(dtype)
+        state = create_train_state(conf, model, max_iter=10 ** 6)
+        step = make_train_step(conf, ds.rois, packed_input=True)
+        reset_counts()
+        dcn_cuda.dcn_v2_shift_backward_cuda = spy
+        try:
+            stats[key] = {k: float(v) for k, v in step(state, batch).items()}
+        finally:
+            dcn_cuda.dcn_v2_shift_backward_cuda = real
+        if dev == "cuda":
+            n = bwd_counts()
+            check(all(v == 8 for v in n.values()), f"card step launched {n}")
+        after[key] = {k: v.detach().cpu() for k, v in
+                      model.state_dict().items()}
+    check(stats["cpu64"]["fg_count"] > 0, "card vs CPU batch has no "
+          "sampled fg")
+    check(len(calls) == 8, f"{len(calls)} DCN backward calls on the card")
+    pnames = [n for n, _ in build(conf, device="cpu",
+                                  phase="train").named_parameters()]
+    stat_names = [n for n in init if n.endswith(("running_mean",
+                                                 "running_var"))]
+    own, largest = update_errors(after["card"], init, after["cpu64"], pnames)
+    vals = sorted(own.values())
+    dcn = {n: e for n, e in own.items() if "DCN_0" in n}
+    errs = {"loss": abs(stats["card"]["loss"] - stats["cpu64"]["loss"])
+            / abs(stats["cpu64"]["loss"]),
+            "bn_stats": max(float((after["card"][n].double()
+                                   - after["cpu64"][n]).abs().max()
+                                  / after["cpu64"][n].abs().max()
+                                  .clamp(min=1e-12)) for n in stat_names),
+            "update_median": vals[len(vals) // 2],
+            "update_largest": largest,
+            "update_each": vals[-1]}
+
+    # the kernels' gradients against the float64 plain backward, per
+    # operand of each call, relative to that gradient's largest magnitude
+    ties, dcn_grads = 1.0, {}
+    for i, (ops, got, clamp) in enumerate(calls):
+        x, off, mask, w, g = ops
+        ties = min(ties, float((off == 0).float().mean()))
+        want = dcn_v2_shift_backward_reference(
+            x.double(), off.double(), mask.double(), w.double(), g.double(),
+            clamp=clamp)
+        for name, a, b in zip(("dx", "doffset", "dmask", "dweight"), got,
+                              want):
+            scale = float(b.abs().max())
+            check(scale > 0, f"DCN layer {i}: {name} is zero")
+            dcn_grads[f"{i}.{name}"] = float((a.double() - b).abs().max()) \
+                / scale
+    check(ties == 1.0, f"card step's DCN offsets not all 0 ({ties})")
+    errs["dcn_grads"] = max(dcn_grads.values())
+    for k, lim in TRAIN_CPU_TOL.items():
+        check(errs[k] <= lim, f"train step card vs CPU float64: {k} error "
+              f"{errs[k]} above {lim}")
+    worst = sorted(((e, n) for n, e in own.items()), reverse=True)[:3]
+    log(f"train step card (kernels, float32) vs CPU (plain, float64) at "
+        f"{H}x{W} dla34, zero DCN offsets, no weight decay: loss "
+        f"{stats['card']['loss']:.6f} vs {stats['cpu64']['loss']:.6f}; "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f"; per-tensor update errors over {len(vals)} tensors: p90 "
+        f"{vals[int(0.9 * len(vals))]:.3e}, largest {worst}; the 8 DCN "
+        f"layers' tensors {max(dcn.values()):.3e}")
+    log("  DCN backward on the card step's operands vs float64 plain, "
+        "relative max|diff| per call (dx doffset dmask dweight): "
+        + "; ".join(" ".join(f"{dcn_grads[f'{i}.{n}']:.1e}" for n in
+                             ("dx", "doffset", "dmask", "dweight"))
+                    for i in range(len(calls))))
+    return errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -726,24 +1305,30 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    lib, report = _build.build()
-    log(f"built {os.path.relpath(lib, ROOT)} from "
-        f"{os.path.relpath(_build.SOURCE, ROOT)} in "
-        f"{time.perf_counter() - t0:.1f} s")
-    for line in ptxas_summary(report):
+    built = _build.build()
+    log(f"built {', '.join(os.path.relpath(p, ROOT) for p, _ in built.values())}"
+        f" from {', '.join(os.path.relpath(_build.SOURCES[n], ROOT) for n in built)}"
+        f" in {time.perf_counter() - t0:.1f} s (one nvcc per source, in "
+        "parallel)")
+    for line in ptxas_summary("\n".join(r for _, r in built.values())):
         log(f"  {line}")
-    hgmma = count_sass(lib, "HGMMA")
+    hgmma = count_sass(built["dcn_shift"][0], "HGMMA")
     if hgmma is not None:
-        log(f"  {hgmma} HGMMA (wgmma) instructions in the library's SASS")
+        log(f"  {hgmma} HGMMA (wgmma) instructions in the forward library's "
+            "SASS")
 
     totals, max_err = phase_kernel_vs_plain(torch.device("cuda"))
+    bt, prod_ms, bwd_err = phase_bwd_vs_plain(torch.device("cuda"))
     launches = phase_detect(label)
     phase_card_vs_cpu()
     launches += phase_eval(label)
+    train_launches, _ = phase_train(label)
+    phase_train_card_vs_cpu()
+    launches += train_launches["forward"]
 
-    # the kernel's numbers summed over one forward of each size: the
-    # 384x1280 bs=1 and bs=8 (the eval run's) and the 512x1760 bs=8 neck,
-    # 8 layers each
+    # the forward kernel's numbers summed over one forward of each size:
+    # the 384x1280 bs=1 and bs=8 (the eval and train runs') and the
+    # 512x1760 bs=8 neck, 8 layers each
     fwd = {k: sum(t[k] for t in totals.values())
            for k in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
     kernels = [{
@@ -762,6 +1347,23 @@ def main() -> int:
         "forwards": {run: {k: t[k] for k in ("ms", "plain_ms", "bound_ms")}
                      for run, t in totals.items()},
     }]
+    for k in BWD_KERNELS:
+        t = bt[k]
+        kernels.append({
+            "name": f"dcn_shift_bwd_{k}",
+            "route": "cuda",
+            "source": "m3dssd_tpu_torch/csrc/dcn_shift_bwd.cu",
+            "replaces": "m3dssd_tpu/ops/dcn.py:382",
+            "launches": train_launches[k],
+            "max_abs_err": bwd_err[k],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": ("bytes" if t["bytes_ms"] > t["ops_ms"]
+                         else "operations"),
+            "library_ms": None,
+            "products_ms": prod_ms,
+        })
     log(f"smoke run took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

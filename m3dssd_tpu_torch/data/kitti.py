@@ -1,14 +1,14 @@
-"""KITTI parsing and the eval-phase dataset (numpy on the host).
+"""KITTI parsing and the dataset (numpy on the host).
 
 Calibration and label parsing, the image database of a KITTI-layout split
 and `Kitti3DDataset`, which yields preprocessed eval samples
 `{"input": [H, W, 3] float32 RGB, "meta": {p2, p2_inv, imH, imW,
-scale_factor, id}}`. Image sizes come from the PNG header, so scanning a
-split needs no image codec; decoding an image needs OpenCV (`cv2`),
-imported only when an image is read. Without it, pass decoded images
-through an in-memory dataset with the same contract
-(`data.synthetic.SyntheticEvalSet`). The train phase waits for the
-training slice.
+scale_factor, id}}` and, in the train phase, augmented samples with their
+anchor targets (`"target"`, from `targets.build_targets`). Image sizes come
+from the PNG header, so scanning a split needs no image codec; decoding an
+image needs OpenCV (`cv2`), imported only when an image is read. Without
+it, pass decoded images through an in-memory dataset with the same
+contract (`data.synthetic.SyntheticEvalSet`, `SyntheticTrainSet`).
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from typing import List, Optional
 import numpy as np
 
 from .. import geometry as geo
-from .augment import Preprocess
+from .augment import Augmentation, Preprocess
 
 
 class AttrDict(dict):
@@ -69,61 +69,68 @@ _LABEL_RE = re.compile(
 
 def read_kitti_label(file: str, p2: np.ndarray,
                      use_3d_for_2d: bool = False) -> List[AttrDict]:
-    """Parse a KITTI label file into per-object AttrDicts, notably
+    """Parse a KITTI label file (see `parse_kitti_label`)."""
+    with open(file, "r") as f:
+        return parse_kitti_label(f, p2, use_3d_for_2d)
+
+
+def parse_kitti_label(lines, p2: np.ndarray,
+                      use_3d_for_2d: bool = False) -> List[AttrDict]:
+    """Parse KITTI label lines into per-object AttrDicts, notably
     `bbox_full` = [x, y, w, h] and `bbox_3d` =
     [cx2d, cy2d, cz2d, w3d, h3d, l3d, alpha, cx3d, cy3d, cz3d, rotY], where
     (cx2d, cy2d) is the projected 3D center and cy3d is moved to the box
     middle (the KITTI y is the bottom face)."""
     gts = []
-    with open(file, "r") as f:
-        for line in f:
-            m = _LABEL_RE.match(line.strip())
-            if m is None:
-                continue
-            g = m.groups()
-            cls = g[0]
-            trunc, occ = float(g[1]), float(g[2])
-            x, y, x2, y2 = (float(g[i]) for i in range(4, 8))
-            h3d, w3d, l3d = float(g[8]), float(g[9]), float(g[10])
-            cx3d, cy3d, cz3d = float(g[11]), float(g[12]), float(g[13])
-            rotY = float(g[14])
+    for line in lines:
+        m = _LABEL_RE.match(line.strip())
+        if m is None:
+            continue
+        g = m.groups()
+        cls = g[0]
+        trunc, occ = float(g[1]), float(g[2])
+        x, y, x2, y2 = (float(g[i]) for i in range(4, 8))
+        h3d, w3d, l3d = float(g[8]), float(g[9]), float(g[10])
+        cx3d, cy3d, cz3d = float(g[11]), float(g[12]), float(g[13])
+        rotY = float(g[14])
 
-            ign = False
-            cy3d -= h3d / 2  # re-center from bottom face to box center
-            elevation = 1.65 - cy3d
+        ign = False
+        cy3d -= h3d / 2  # re-center from bottom face to box center
+        elevation = 1.65 - cy3d
 
-            width = x2 - x + 1
-            height = y2 - y + 1
+        width = x2 - x + 1
+        height = y2 - y + 1
 
-            if use_3d_for_2d and h3d > 0 and w3d > 0 and l3d > 0:
-                verts, c3d = geo.project_3d(p2, cx3d, cy3d, cz3d, w3d, h3d,
-                                            l3d, rotY, return_3d=True)
-                if np.any(c3d[2, :] <= 0):
-                    ign = True
-                else:
-                    x, y = verts[:, 0].min(), verts[:, 1].min()
-                    x2, y2 = verts[:, 0].max(), verts[:, 1].max()
-                    width = x2 - x + 1
-                    height = y2 - y + 1
+        if use_3d_for_2d and h3d > 0 and w3d > 0 and l3d > 0:
+            verts, c3d = geo.project_3d(p2, cx3d, cy3d, cz3d, w3d, h3d,
+                                        l3d, rotY, return_3d=True)
+            if np.any(c3d[2, :] <= 0):
+                ign = True
+            else:
+                x, y = verts[:, 0].min(), verts[:, 1].min()
+                x2, y2 = verts[:, 0].max(), verts[:, 1].max()
+                width = x2 - x + 1
+                height = y2 - y + 1
 
-            coord = p2 @ np.array([cx3d, cy3d, cz3d, 1.0])
-            cx, cy, cz2d = coord[0] / coord[2], coord[1] / coord[2], coord[2]
+        coord = p2 @ np.array([cx3d, cy3d, cz3d, 1.0])
+        cx, cy, cz2d = coord[0] / coord[2], coord[1] / coord[2], coord[2]
 
-            vis = {0: 1.0, 1: 0.66, 2: 0.33}.get(int(occ), 0.0)
-            rotY = float(geo.snap_to_pi(rotY))
-            alpha = float(geo.convert_rot_to_alpha(rotY, cz3d, cx3d))
+        vis = {0: 1.0, 1: 0.66, 2: 0.33}.get(int(occ), 0.0)
+        rotY = float(geo.snap_to_pi(rotY))
+        alpha = float(geo.convert_rot_to_alpha(rotY, cz3d, cx3d))
 
-            gts.append(AttrDict(
-                elevation=elevation, cls=cls, occ=occ > 0, ign=ign,
-                visibility=vis, trunc=trunc, alpha=alpha, rotY=rotY,
-                bbox_full=np.array([x, y, width, height], dtype=np.float64),
-                bbox_3d=[cx, cy, cz2d, w3d, h3d, l3d, alpha, cx3d, cy3d,
-                         cz3d, rotY],
-                center_3d=[cx3d, cy3d, cz3d]))
+        gts.append(AttrDict(
+            elevation=elevation, cls=cls, occ=occ > 0, ign=ign,
+            visibility=vis, trunc=trunc, alpha=alpha, rotY=rotY,
+            bbox_full=np.array([x, y, width, height], dtype=np.float64),
+            bbox_3d=[cx, cy, cz2d, w3d, h3d, l3d, alpha, cx3d, cy3d,
+                     cz3d, rotY],
+            center_3d=[cx3d, cy3d, cz3d]))
     return gts
 
 
-_PHASE_DIR = {"validation": "validation", "test": "testing"}
+_PHASE_DIR = {"train": "training", "validation": "validation",
+              "test": "testing"}
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 
 
@@ -178,8 +185,13 @@ def build_imdb(conf, data_root: str, phase: str,
             if "_" in iid:
                 continue  # earlier frame of a video_det stack, not an image id
             p2 = read_kitti_cal(os.path.join(cal_folder, iid + ".txt"))
+            gts = None
+            if phase == "train":
+                gts = read_kitti_label(os.path.join(base, "label_2",
+                                                    iid + ".txt"),
+                                       p2, conf.use_3d_for_2d)
             imH, imW = _image_size(impath)
-            imdb.append(AttrDict(id=iid, gts=None, p2=p2,
+            imdb.append(AttrDict(id=iid, gts=gts, p2=p2,
                                  p2_inv=np.linalg.inv(p2), path=impath,
                                  imH=imH, imW=imW, dbname=db["name"],
                                  scale=db["scale"], dbind=dbind))
@@ -204,28 +216,69 @@ def eval_sample(im: np.ndarray, imobj: AttrDict, transform):
                      "id": imobj.id}}
 
 
-class Kitti3DDataset:
-    """Eval-phase dataset over a KITTI-layout split: `ds[i]` is the
-    preprocessed sample of image i.
+def train_sample(im: np.ndarray, imobj: AttrDict, transform, conf, rois,
+                 rng=None):
+    """One train sample from a decoded BGR image and a copy of its imdb
+    entry: augment (drawing from `rng`), BGR -> RGB per 3-channel group,
+    and the anchor targets of the augmented gts over `rois`."""
+    from ..targets import build_targets
 
-    Decoded samples are cached up to conf.eval_image_cache_mb MiB (0 turns
-    the cache off), so a second pass over the split skips decode, pad and
-    normalise; eval samples are deterministic, so the cache is exact. Safe
-    to read from several prefetch threads.
+    if not conf.pre_compute_target:
+        raise NotImplementedError("on-device target assignment "
+                                  "(pre_compute_target=False) is not ported")
+    im, imobj = transform(im, imobj, rng=rng)
+    groups = [im[:, :, i:i + 3][:, :, ::-1] for i in range(0, im.shape[2], 3)]
+    im = np.ascontiguousarray(np.concatenate(groups, axis=2))
+    return {"input": im.astype(np.float32),
+            "meta": {"p2": imobj.p2, "p2_inv": imobj.p2_inv,
+                     "imH": imobj.imH, "imW": imobj.imW,
+                     "scale_factor": imobj.get("scale_factor", 1.0),
+                     "id": imobj.id},
+            "target": build_targets(conf, imobj, rois=rois)}
+
+
+def prepare_train(conf, imdb, cache_folder: Optional[str] = None):
+    """Anchors and whitening statistics from the train imdb when conf has
+    none (written onto conf, cached in `cache_folder` when given); returns
+    the train rois [N, 5] at conf.feat_size."""
+    from ..anchors import compute_bbox_stats, generate_anchors, \
+        locate_anchors
+
+    if conf.anchors is None:
+        generate_anchors(conf, imdb, cache_folder)
+        compute_bbox_stats(conf, imdb, cache_folder)
+    return locate_anchors(conf.anchors, conf.feat_size, conf.feat_stride)
+
+
+class Kitti3DDataset:
+    """Dataset over a KITTI-layout split: `ds[i]` (or `ds.sample(i, rng)`)
+    is the sample of image i.
+
+    Eval phases ("validation", "test") preprocess deterministically; their
+    decoded samples are cached up to conf.eval_image_cache_mb MiB (0 turns
+    the cache off), so a second pass skips decode, pad and normalise. The
+    "train" phase builds anchors and whitening stats when conf has none,
+    augments with the per-sample `rng` and adds the anchor targets. Safe to
+    read from several prefetch threads.
     """
 
     def __init__(self, conf, data_root: str, phase: str = "validation",
                  cache_folder: Optional[str] = None, imdb=None):
         if phase not in _PHASE_DIR:
-            raise ValueError(f"phase {phase!r}: the port reads the eval "
-                             f"phases {sorted(_PHASE_DIR)}")
+            raise ValueError(f"phase {phase!r}: one of {sorted(_PHASE_DIR)}")
         self.conf = conf
         self.phase = phase
         self.imdb = imdb if imdb is not None else build_imdb(
             conf, data_root, phase, cache_folder)
-        self.transform = Preprocess(conf.test_scale, conf.image_means,
-                                    conf.image_stds)
-        self._cache_cap = int(getattr(conf, "eval_image_cache_mb", 0)) << 20
+        self.rois = None
+        if phase == "train":
+            self.rois = prepare_train(conf, self.imdb, cache_folder)
+            self.transform = Augmentation(conf)
+        else:
+            self.transform = Preprocess(conf.test_scale, conf.image_means,
+                                        conf.image_stds)
+        self._cache_cap = 0 if phase == "train" else \
+            int(getattr(conf, "eval_image_cache_mb", 0)) << 20
         self._cache: dict = {}
         self._cache_bytes = 0
         self._lock = threading.Lock()
@@ -251,7 +304,11 @@ class Kitti3DDataset:
     def __getitem__(self, index: int):
         return self.sample(index)
 
-    def sample(self, index: int):
+    def sample(self, index: int, rng=None):
+        if self.phase == "train":
+            return train_sample(self.read_image(index),
+                                copy.deepcopy(self.imdb[index]),
+                                self.transform, self.conf, self.rois, rng)
         with self._lock:
             hit = self._cache.get(index)
         if hit is not None:

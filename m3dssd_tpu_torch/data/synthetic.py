@@ -4,18 +4,21 @@
 their 2D boxes and alpha derived the way KITTI defines them, so labels are
 geometrically consistent. `generate` writes a KITTI-layout directory
 (image_2/, calib/, label_2/; needs OpenCV to write the PNGs);
-`SyntheticEvalSet` keeps an eval split in memory and needs no image codec.
+`SyntheticEvalSet` and `SyntheticTrainSet` keep an eval or a train split in
+memory and need no image codec.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 
 import numpy as np
 
 from .. import geometry as geo
-from .augment import Preprocess
-from .kitti import AttrDict, eval_sample
+from .augment import Augmentation, Preprocess
+from .kitti import (AttrDict, eval_sample, parse_kitti_label, prepare_train,
+                    train_sample)
 
 # A realistic KITTI P2 (from the devkit's example calibration).
 DEFAULT_P2 = np.array([
@@ -207,3 +210,50 @@ class SyntheticEvalSet:
         imobj = AttrDict(id=self.image_id(index), p2=self.p2,
                          p2_inv=self.p2_inv, imH=self.imH, imW=self.imW)
         return eval_sample(self.scenes[index][1], imobj, self.transform)
+
+
+class SyntheticTrainSet:
+    """An in-memory train split of `num` synthetic scenes with the train
+    contract of `data.kitti.Kitti3DDataset` (`ds.sample(i, rng)` -> {"input",
+    "meta", "target"}; `ds.imdb`, `ds.rois`, `ds.conf`).
+
+    The scenes are those `generate(root, num_train=num, seed=seed, ...)`
+    writes to its training split, and `imdb` holds what `build_imdb` reads
+    back from those files (labels and P2 at the precision the files keep),
+    so a sample equals the one the KITTI dataset gives from the written
+    split; the images stay decoded uint8 BGR. Anchors and whitening stats
+    are built from the split when conf has none.
+    """
+
+    def __init__(self, conf, num: int, seed: int = 0, imW: int = 1242,
+                 imH: int = 375, classes=("Car",), max_objs: int = 4,
+                 min_h_px: int = 25):
+        p2 = scaled_p2(imW / 1242.0)
+        p2_file = np.vectorize(lambda v: float(f"{v:.12e}"))(p2)
+        rng = np.random.default_rng(seed)
+        self.conf = conf
+        self.images, self.imdb = [], []
+        db = conf.datasets_train[0]
+        for i, (rows, im) in enumerate(_draw(rng, num, imW, imH, classes, p2,
+                                             max_objs, min_h_px)):
+            lines = [_label_line(r) for r in rows]
+            self.images.append(im)
+            self.imdb.append(AttrDict(
+                id=f"{i:06d}", gts=parse_kitti_label(lines, p2_file,
+                                                     conf.use_3d_for_2d),
+                p2=p2_file, p2_inv=np.linalg.inv(p2_file), path=None,
+                imH=imH, imW=imW, dbname=db["name"], scale=db["scale"],
+                dbind=0))
+        self.rois = prepare_train(conf, self.imdb)
+        self.transform = Augmentation(conf)
+
+    def __len__(self):
+        return len(self.imdb)
+
+    def sample(self, index: int, rng=None):
+        return train_sample(self.images[index],
+                            copy.deepcopy(self.imdb[index]), self.transform,
+                            self.conf, self.rois, rng)
+
+    def __getitem__(self, index: int):
+        return self.sample(index)

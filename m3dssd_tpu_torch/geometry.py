@@ -1,9 +1,11 @@
-"""Host-side (numpy, float64) projective geometry for the eval path: 3D
-box corners and their projection, the back-projected ray, alpha <-> rotY
-and the xywh -> xyxy box convention.
+"""Host-side (numpy, float64) geometry: 3D box corners and their
+projection, the back-projected ray, alpha <-> rotY, the xywh -> xyxy box
+convention, box overlaps, the regression transforms and the ignore rules
+of the ground truths.
 
 The port's own copy of what `inference/hill_climb.py`,
-`inference/test_driver.py` and the KITTI label reader need.
+`inference/test_driver.py`, the KITTI label reader, the train targets
+(`targets.py`), the anchors and the augmentations need.
 """
 
 from __future__ import annotations
@@ -101,3 +103,98 @@ def xywh_to_xyxy(box):
     out[..., 2] = box[..., 0] + box[..., 2] - 1
     out[..., 3] = box[..., 1] + box[..., 3] - 1
     return out
+
+
+def intersect(box_a, box_b):
+    """Pairwise intersection areas: box_a [M,4] x box_b [N,4] -> [M,N].
+
+    No +1 in the width/height here.
+    """
+    box_a = np.asarray(box_a, dtype=np.float64)
+    box_b = np.asarray(box_b, dtype=np.float64)
+    max_xy = np.minimum(box_a[:, None, 2:4], box_b[None, :, 2:4])
+    min_xy = np.maximum(box_a[:, None, 0:2], box_b[None, :, 0:2])
+    wh = np.clip(max_xy - min_xy, 0, None)
+    return wh[..., 0] * wh[..., 1]
+
+
+def iou(box_a, box_b):
+    """Pairwise IoU [M,N]."""
+    inter = intersect(box_a, box_b)
+    area_a = (box_a[:, 2] - box_a[:, 0]) * (box_a[:, 3] - box_a[:, 1])
+    area_b = (box_b[:, 2] - box_b[:, 0]) * (box_b[:, 3] - box_b[:, 1])
+    union = area_a[:, None] + area_b[None, :] - inter
+    return inter / union
+
+
+def iou_ign(box_a, box_b):
+    """Fraction of each box_a covered by (ignore-region) box_b: [M,N].
+
+    Union ignores box_b's area entirely.
+    """
+    inter = intersect(box_a, box_b)
+    area_a = (box_a[:, 2] - box_a[:, 0]) * (box_a[:, 3] - box_a[:, 1])
+    return inter / area_a[:, None]
+
+
+# ----------------------------------------------------------------------------
+# Regression transforms
+# ----------------------------------------------------------------------------
+
+def bbox_transform(ex_rois, gt_rois):
+    """2D box -> regression target [dx, dy, dw, dh]."""
+    ex_w = ex_rois[:, 2] - ex_rois[:, 0] + 1.0
+    ex_h = ex_rois[:, 3] - ex_rois[:, 1] + 1.0
+    ex_cx = ex_rois[:, 0] + 0.5 * (ex_w - 1)
+    ex_cy = ex_rois[:, 1] + 0.5 * (ex_h - 1)
+
+    gt_w = gt_rois[:, 2] - gt_rois[:, 0] + 1.0
+    gt_h = gt_rois[:, 3] - gt_rois[:, 1] + 1.0
+    gt_cx = gt_rois[:, 0] + 0.5 * (gt_w - 1.0)
+    gt_cy = gt_rois[:, 1] + 0.5 * (gt_h - 1.0)
+
+    return np.stack([(gt_cx - ex_cx) / ex_w,
+                     (gt_cy - ex_cy) / ex_h,
+                     np.log(gt_w / ex_w),
+                     np.log(gt_h / ex_h)], axis=1)
+
+
+def bbox_transform_3d(ex_rois_2d, ex_rois_3d, gt_rois):
+    """3D regression targets.
+
+    ex_rois_2d: [N,4] anchor 2D boxes; ex_rois_3d: [N,5] anchor (z,w,h,l,ry)
+    stats; gt_rois: [N,11] = [cx2d, cy2d, z2d, w3d, h3d, l3d, alpha,
+    cx3d, cy3d, cz3d, rotY] (projected-center encoding from the label parser).
+    Returns [N, 7+extra]: [dx, dy, dz, sw, sh, sl, dry, <gt tail passthrough>].
+    """
+    ex_w = ex_rois_2d[:, 2] - ex_rois_2d[:, 0] + 1.0
+    ex_h = ex_rois_2d[:, 3] - ex_rois_2d[:, 1] + 1.0
+    ex_cx = ex_rois_2d[:, 0] + 0.5 * (ex_w - 1)
+    ex_cy = ex_rois_2d[:, 1] + 0.5 * (ex_h - 1)
+
+    dx = (gt_rois[:, 0] - ex_cx) / ex_w
+    dy = (gt_rois[:, 1] - ex_cy) / ex_h
+    dz = gt_rois[:, 2] - ex_rois_3d[:, 0]
+    sw = np.log(gt_rois[:, 3] / ex_rois_3d[:, 1])
+    sh = np.log(gt_rois[:, 4] / ex_rois_3d[:, 2])
+    sl = np.log(gt_rois[:, 5] / ex_rois_3d[:, 3])
+    dry = gt_rois[:, 6] - ex_rois_3d[:, 4]
+
+    head = np.stack([dx, dy, dz, sw, sh, sl, dry], axis=1)
+    return np.concatenate([head, gt_rois[:, 7:]], axis=1)
+
+
+def determine_ignores(gts, lbls, ilbls, min_gt_vis=0.99, min_gt_h=0,
+                      max_gt_h=10e10, scale_factor=1):
+    """Ignore/remove flags per ground truth."""
+    igns = np.zeros(len(gts), dtype=bool)
+    rmvs = np.zeros(len(gts), dtype=bool)
+    for i, gt in enumerate(gts):
+        ign = bool(gt.ign)
+        ign |= gt.visibility < min_gt_vis
+        ign |= gt.bbox_full[3] * scale_factor < min_gt_h
+        ign |= gt.bbox_full[3] * scale_factor > max_gt_h
+        ign |= gt.cls in ilbls
+        igns[i] = ign
+        rmvs[i] = gt.cls not in (list(lbls) + list(ilbls))
+    return igns, rmvs

@@ -1,0 +1,256 @@
+"""The M3DSSD detection loss on the model's channel-major outputs.
+
+The port's copy of the reference package's `losses/rpn_loss.py`
+(`rpn_3d_loss`), with its semantics:
+
+  * per-image box sampling with budgets fg = round(N * box_samples *
+    fg_fraction), bg = round(N * box_samples) - fg, taking the lowest-scoring
+    candidates first (hard mining by the predicted probability of the
+    labelled class), or random candidates with `hard_negatives` off;
+  * batch-global fg/bg re-weighting fg_w = fg_fraction / (1 - fg_fraction)
+    * bg_total / fg_total;
+  * cross-entropy clipped per element to [0, 2000], mean over the sampled
+    anchors;
+  * SmoothL1 on the 7 whitened 3D parameters, mean over sampled fg;
+  * -log IoU between the decoded predicted and target 2D boxes;
+  * optional focal down-weighting (1 - p)^gamma and the 2D SmoothL1 branch.
+
+Everything is a fixed-shape tensor op: no host sync, so the stats stay on
+the device until a caller reads them. The 3D-projection and 3D-IoU branches
+(`bbox_3d_proj_lambda`, `bbox_3d_iou_lambda`, 0 in every stock config) are
+not ported and raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..ops.boxes import (bbox_transform_inv_t, clip, decode_bbox_3d_t,
+                         iou_list_t, masked_mean, smooth_l1)
+
+IGN_FLAG = 3000
+
+
+@dataclasses.dataclass(frozen=True)
+class RPNLossConfig:
+    box_samples: float = 0.20
+    fg_fraction: float = 0.20
+    hard_negatives: bool = True
+    focal_loss: float = 0.0
+    cls_2d_lambda: float = 1.0
+    iou_2d_lambda: float = 1.0
+    bbox_2d_lambda: float = 0.0
+    bbox_3d_lambda: float = 1.0
+    bbox_3d_proj_lambda: float = 0.0
+    bbox_3d_iou_lambda: float = 0.0
+    # leave out the logging-only stats (acc_fg/acc_bg, err_z/err_ry)
+    light_stats: bool = False
+    # read for the config's sake: the reference selects by bit bisection
+    # under this flag, a TPU speed form with the same masks as its sort;
+    # the port always selects with one stable sort
+    mining_bisect: bool = False
+
+    @staticmethod
+    def from_conf(conf) -> "RPNLossConfig":
+        return RPNLossConfig(
+            box_samples=conf.box_samples, fg_fraction=conf.fg_fraction,
+            hard_negatives=conf.hard_negatives, focal_loss=conf.focal_loss,
+            cls_2d_lambda=conf.cls_2d_lambda, iou_2d_lambda=conf.iou_2d_lambda,
+            bbox_2d_lambda=conf.bbox_2d_lambda,
+            bbox_3d_lambda=conf.bbox_3d_lambda,
+            bbox_3d_proj_lambda=conf.bbox_3d_proj_lambda,
+            bbox_3d_iou_lambda=conf.bbox_3d_iou_lambda,
+            light_stats=bool(conf.loss_light_stats),
+            mining_bisect=bool(conf.loss_mining_bisect))
+
+
+def rank_select_pools(score, pools, budgets):
+    """For each pool, select its (up to) `budget` members of lowest score.
+
+    One stable ascending sort of `score` serves every pool: restricted to a
+    pool's members it keeps their order, so a member's rank in its pool is
+    a cumsum of membership in the sorted order. The pool's threshold score
+    s_t is that of its member at rank b_eff - 1 (b_eff = min(budget, pool
+    size)); the kept set is every member below s_t plus the first
+    (b_eff - #below) members equal to s_t in original order, which is what
+    the stable sort selects.
+
+    score [B,N]; pools: list of [B,N] bool; budgets: list of [B] int
+    tensors. Returns a list of [B,N] bool masks.
+    """
+    flags = sum(p.to(torch.int32) << i for i, p in enumerate(pools))
+    s_sorted, order = torch.sort(score, dim=1, stable=True)
+    f_sorted = torch.gather(flags, 1, order)
+    keeps = []
+    for i, (pool, budget) in enumerate(zip(pools, budgets)):
+        p_sorted = (f_sorted >> i) & 1
+        rank = torch.cumsum(p_sorted, dim=1) - 1
+        b_eff = torch.minimum(budget, rank[:, -1] + 1)           # [B]
+        at_last = (p_sorted > 0) & (rank == b_eff[:, None] - 1)
+        j = torch.argmax(at_last.to(torch.int32), dim=1)          # first True
+        s_t = torch.gather(s_sorted, 1, j[:, None])
+        below = pool & (score < s_t)
+        ties = pool & (score == s_t)
+        n_below = below.sum(dim=1, keepdim=True)
+        tie_rank = torch.cumsum(ties.to(torch.int32), dim=1)
+        keep = below | (ties & (tie_rank <= b_eff[:, None] - n_below))
+        keeps.append(keep & (b_eff > 0)[:, None])
+    return keeps
+
+
+def take_class_t(v_t, lbl):
+    """v_t[:, lbl] per anchor of a channel-major [B, C, N] tensor."""
+    out = torch.zeros_like(v_t[:, 0])
+    for c in range(v_t.shape[1]):
+        out = torch.where(lbl == c, v_t[:, c], out)
+    return out
+
+
+def argmax_class_t(v_t):
+    """argmax over the class dim of [B, C, N] (first maximum on ties)."""
+    best = v_t[:, 0]
+    pred = torch.zeros(best.shape, dtype=torch.int64, device=v_t.device)
+    for c in range(1, v_t.shape[1]):
+        take = v_t[:, c] > best
+        pred = torch.where(take, c, pred)
+        best = torch.maximum(best, v_t[:, c])
+    return pred
+
+
+def rpn_3d_loss(outputs: Dict[str, torch.Tensor],
+                batch: Dict[str, torch.Tensor], rois: torch.Tensor,
+                anchors: torch.Tensor, bbox_means: torch.Tensor,
+                bbox_stds: torch.Tensor, cfg: RPNLossConfig,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The total detection loss and a dict of detached stats.
+
+    outputs: the model's dict (cls_t, prob_t [B,C,N]; lse [B,N]; bbox_2d
+    [B,4,N]; bbox_3d [B,7,N]). batch: labels [B,N] (IGN_FLAG ignored),
+    labels_fg/bg/ign [B,N], bbox_2d [B,4,N] and bbox_3d [B,7,N] whitened
+    targets, any_val [B]. rois [N,5]; anchors [A,9]; bbox_means/stds [1,11].
+    `generator` draws the random sampling scores when hard_negatives is off.
+    """
+    if cfg.bbox_3d_proj_lambda or cfg.bbox_3d_iou_lambda:
+        raise NotImplementedError(
+            "the 3D-projection and 3D-IoU loss branches are not ported")
+    f32 = torch.float32
+    cls_t = outputs["cls_t"].to(f32)                        # [B,C,N]
+    prob_t = outputs["prob_t"].to(f32).detach()
+    lse = outputs["lse"].to(f32)                            # [B,N]
+    B, C, N = cls_t.shape
+    dev = cls_t.device
+    bbox_2d = outputs["bbox_2d"].to(f32)
+    bbox_3d = outputs["bbox_3d"].to(f32)
+    means = torch.as_tensor(bbox_means, dtype=f32, device=dev).reshape(-1)
+    stds = torch.as_tensor(bbox_stds, dtype=f32, device=dev).reshape(-1)
+    rois = torch.as_tensor(rois, dtype=f32, device=dev)
+    anchors = torch.as_tensor(anchors, dtype=f32, device=dev)
+
+    labels = batch["labels"].to(torch.int64)
+    is_fg = batch["labels_fg"].bool()
+    is_bg = batch["labels_bg"].bool()
+    is_ign = batch["labels_ign"].bool()
+    any_val = batch["any_val"].bool()                       # [B]
+
+    # ---------------------------------------------------------- box sampling
+    fg_budget = round(N * cfg.box_samples * cfg.fg_fraction)
+    total_budget = round(N * cfg.box_samples)
+    n_fg = is_fg.sum(dim=1)
+    n_ign = is_ign.sum(dim=1)
+    # an image takes part iff it has valid gts and fg or ignored anchors
+    participates = any_val & ((n_fg > 0) | (n_ign > 0))
+    fg_num = torch.clamp(n_fg, max=fg_budget)
+    bg_num = total_budget - fg_num
+
+    lbl_for_score = torch.where(labels == IGN_FLAG, 0, labels)
+    score = take_class_t(prob_t, lbl_for_score)
+    if cfg.hard_negatives:
+        sel_score = score
+    else:
+        if generator is None:
+            raise ValueError("random sampling (hard_negatives off) needs a "
+                             "generator")
+        sel_score = torch.rand(score.shape, generator=generator,
+                               device=dev)
+    sel_fg, sel_bg = rank_select_pools(sel_score, [is_fg, is_bg],
+                                       [fg_num, bg_num])
+    sel_fg = sel_fg & participates[:, None]
+    sel_bg = sel_bg & participates[:, None]
+    fg_total = sel_fg.sum()
+    bg_total = sel_bg.sum()
+
+    fg_w = torch.where(
+        fg_total > 0,
+        (cfg.fg_fraction / (1 - cfg.fg_fraction))
+        * (bg_total.to(f32) / torch.clamp(fg_total, min=1).to(f32)),
+        torch.zeros((), dtype=f32, device=dev))
+    labels_weight = sel_fg.to(f32) * fg_w + sel_bg.to(f32)
+    if cfg.focal_loss:
+        labels_weight = labels_weight * (1.0 - score) ** cfg.focal_loss
+
+    active = sel_fg | sel_bg
+    stats: Dict[str, torch.Tensor] = {}
+    loss = torch.zeros((), dtype=f32, device=dev)
+
+    # ------------------------------------------------------------- cls loss
+    if cfg.cls_2d_lambda:
+        # -log_softmax[lbl] == lse - logit[lbl]
+        ce = lse - take_class_t(cls_t, lbl_for_score)
+        ce = clip(ce * labels_weight, 0.0, 2000.0)
+        loss_cls = masked_mean(ce, active) * cfg.cls_2d_lambda
+        loss = loss + loss_cls
+        stats["loss_cls"] = loss_cls
+
+    if not cfg.light_stats:
+        cls_pred = argmax_class_t(cls_t)
+        lab_fg_all = (labels > 0) & (labels != IGN_FLAG)
+        stats["acc_fg"] = masked_mean((cls_pred == labels).to(f32),
+                                      lab_fg_all)
+        stats["acc_bg"] = masked_mean((cls_pred == 0).to(f32), labels == 0)
+
+    # --------------------------------------------------------- box losses
+    bbox_weights = sel_fg.to(f32)
+    for key, lam, pred, tkey in (
+            ("loss_bbox3d", cfg.bbox_3d_lambda, bbox_3d, "bbox_3d"),
+            ("loss_bbox2d", cfg.bbox_2d_lambda, bbox_2d, "bbox_2d")):
+        if not lam:
+            continue
+        l1 = smooth_l1(pred, batch[tkey].to(f32))
+        per_param = torch.stack([masked_mean(l1[:, p], bbox_weights)
+                                 for p in range(l1.shape[1])])
+        term = per_param.sum() * lam
+        loss = loss + term
+        stats[key] = term
+
+    # ------------------------------------------------- decoded IoU loss/stats
+    rois_t = rois.t()                                    # [5, N]
+    coords = bbox_transform_inv_t(rois_t, bbox_2d, means[0:4], stds[0:4])
+    coords_tar = bbox_transform_inv_t(rois_t, batch["bbox_2d"].to(f32),
+                                      means[0:4], stds[0:4])
+    ious = iou_list_t(coords, coords_tar)
+    stats["iou"] = masked_mean(ious, bbox_weights)
+    if cfg.iou_2d_lambda:
+        iou_loss = -torch.log(clip(ious, 1e-7, 1.0))
+        loss_iou = masked_mean(iou_loss, bbox_weights) * cfg.iou_2d_lambda
+        loss = loss + loss_iou
+        stats["loss_iou"] = loss_iou
+
+    if not cfg.light_stats:
+        tracker = rois[:, 4].to(torch.int64)
+        src3d_t = anchors[tracker][:, 4:9].t()           # [5, N]
+        dec = decode_bbox_3d_t(rois_t, bbox_3d, src3d_t, means, stds)
+        dec_tar = decode_bbox_3d_t(rois_t, batch["bbox_3d"].to(f32), src3d_t,
+                                   means, stds)
+        stats["err_z"] = masked_mean(torch.abs(dec[:, 2] - dec_tar[:, 2]),
+                                     bbox_weights)
+        stats["err_ry"] = masked_mean(torch.abs(dec[:, 6] - dec_tar[:, 6]),
+                                      bbox_weights)
+
+    stats["loss"] = loss
+    stats["fg_count"] = fg_total.to(f32)
+    stats["bg_count"] = bg_total.to(f32)
+    return loss, {k: v.detach() for k, v in stats.items()}

@@ -18,6 +18,9 @@ they run the full dense DCN instead. Exact in both regimes.
 
 Layouts: features x are NCHW (channels_last); the per-anchor confidence and
 regressions are [B, H, W, A]. The DCN mask is the soft max confidence.
+Under autograd, gradients reach x and the modules' weights only: the
+confidence and the box regressions that place the taps are detached, as in
+the reference package.
 """
 
 from __future__ import annotations
@@ -42,16 +45,16 @@ class SparseSel(NamedTuple):
 
 def confident_topm(prob, thresh: float, m_per_image: int) -> SparseSel:
     """Select (up to) the first M = m_per_image*B confident positions, in
-    order of appearance. prob [B,H,W,A]."""
+    order of appearance. prob [B,H,W,A] (no gradient flows through it)."""
     B, H, W, A = prob.shape
-    mask, ind = torch.max(prob, dim=-1, keepdim=True)
+    mask, ind = torch.max(prob.detach(), dim=-1, keepdim=True)
     M = int(min(m_per_image * B, B * H * W))
     pos, ok = first_m_true((mask[..., 0] > thresh).reshape(-1), M)
     return SparseSel(pos, bool(ok.item()), mask, ind[..., 0])
 
 
 def _anchor_max(prob) -> SparseSel:
-    mask, ind = torch.max(prob, dim=-1, keepdim=True)
+    mask, ind = torch.max(prob.detach(), dim=-1, keepdim=True)
     return SparseSel(None, None, mask, ind[..., 0])
 
 
@@ -205,8 +208,8 @@ class CenterAlign(nn.Module):
         B, H, W, C = xh.shape
         sel = _anchor_max(prob)
         ind = sel.ind[..., None]
-        bx = bbox_x.to(torch.float32).gather(-1, ind)[..., 0]
-        by = bbox_y.to(torch.float32).gather(-1, ind)[..., 0]
+        bx = bbox_x.detach().to(torch.float32).gather(-1, ind)[..., 0]
+        by = bbox_y.detach().to(torch.float32).gather(-1, ind)[..., 0]
         off_y, off_x = self._offsets(bx, by, sel.ind)
         hard = (sel.mask > self.thresh).to(torch.float32)
         offset = (torch.stack([off_y, off_x], dim=-1) * hard)
@@ -237,8 +240,10 @@ class CenterAlign(nn.Module):
         A = bbox_x.shape[-1]
         ind_p = sel.ind.reshape(-1)[posc]
         mask_p = sel.mask.reshape(-1)[posc]
-        bx = bbox_x.to(f32).reshape(-1, A)[posc].gather(1, ind_p[:, None])[:, 0]
-        by = bbox_y.to(f32).reshape(-1, A)[posc].gather(1, ind_p[:, None])[:, 0]
+        bx = bbox_x.detach().to(f32).reshape(-1, A)[posc] \
+            .gather(1, ind_p[:, None])[:, 0]
+        by = bbox_y.detach().to(f32).reshape(-1, A)[posc] \
+            .gather(1, ind_p[:, None])[:, 0]
         off_y, off_x = self._offsets(bx, by, ind_p)
         py = yy.to(f32) + off_y
         px = xx.to(f32) + off_x

@@ -147,6 +147,9 @@ class DLA(nn.Module):
         self.levels = list(levels)
         self.channels = ch
         self.in_channels = in_channels
+        # compute dtype of a train build whose float32 master weights run
+        # in bf16; None: the weights' own dtype
+        self.compute_dtype = None
         self.base_conv = conv2d(in_channels, ch[0], 7, bias=False)
         self.base_bn = batch_norm(ch[0])
         # level 0 / level 1 conv stacks; the reference names them
@@ -177,7 +180,8 @@ class DLA(nn.Module):
         as NCHW tensors in channels_last memory format."""
         if packed:
             images = depth_to_space(images, self.in_channels)
-        x = images.to(self.base_conv.weight.dtype).permute(0, 3, 1, 2)
+        dtype = self.compute_dtype or self.base_conv.weight.dtype
+        x = images.to(dtype).permute(0, 3, 1, 2)
         x = x.contiguous(memory_format=torch.channels_last)
         x = leaky_relu(self.base_bn(self.base_conv(x)))
         outputs = []

@@ -2,8 +2,15 @@
 
 Module attribute names follow the reference package's module names
 (`Conv_0`, `BatchNorm_0`, ...) so that its parameter trees map onto these
-modules mechanically (utils/weights.py). BatchNorm runs in eval mode with
-eps 1e-5; LeakyReLU has slope 0.01.
+modules mechanically (utils/weights.py). BatchNorm has eps 1e-5; LeakyReLU
+has slope 0.01.
+
+Training follows the reference package's flax modules (`dtype` = compute
+type, `param_dtype` = float32): convolutions cast their float32 master
+weights to the input's type at use, and BatchNorm in train mode normalises
+by the biased batch variance in float32 and moves its running statistics
+with momentum 0.9 on that biased variance (torch's own BatchNorm2d updates
+them with the unbiased one).
 """
 
 from __future__ import annotations
@@ -15,20 +22,61 @@ import torch.nn.functional as F
 BN_EPS = 1e-5
 
 
+BN_MOMENTUM = 0.9   # running-statistics decay, as the reference's flax BN
+
+
 def leaky_relu(x):
+    """LeakyReLU(0.01). Under autograd it is the reference's
+    `where(x >= 0, x, 0.01 x)`, whose gradient at exactly 0 is 1 (torch's
+    leaky_relu passes the slope there)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return torch.where(x >= 0, x, x * 0.01)
     return F.leaky_relu(x, negative_slope=0.01)
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm over NCHW. Eval mode is torch's (running statistics);
+    train mode normalises by the batch mean and the biased batch variance
+    and updates the running statistics, in float32, as
+    r <- 0.9 r + 0.1 stat with the variance E[x^2] - E[x]^2 (clipped at 0)
+    the reference's flax BatchNorm keeps."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            xf = x.detach().to(torch.promote_types(x.dtype, torch.float32))
+            mean = xf.mean((0, 2, 3))
+            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean,
+                              min=0.0)
+            del xf
+            rm, rv = self.running_mean, self.running_var
+            rm.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean.to(rm.dtype))
+            rv.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var.to(rv.dtype))
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias,
+                            training=True, eps=self.eps)
+
+
+def batch_norm(channels: int) -> BatchNorm2d:
+    return BatchNorm2d(channels, eps=BN_EPS, momentum=1.0 - BN_MOMENTUM)
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d whose weight and bias are cast to the input's dtype at use
+    (a no-op where they already have it)."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
 
 
 def conv2d(cin: int, cout: int, kernel: int, stride: int = 1,
-           dilation: int = 1, bias: bool = True, groups: int = 1) -> nn.Conv2d:
+           dilation: int = 1, bias: bool = True, groups: int = 1) -> Conv2d:
     """'Same' padding for odd kernels, as the reference's explicit pads."""
     pad = dilation * (kernel - 1) // 2
-    return nn.Conv2d(cin, cout, kernel, stride=stride, padding=pad,
-                     dilation=dilation, bias=bias, groups=groups)
+    return Conv2d(cin, cout, kernel, stride=stride, padding=pad,
+                  dilation=dilation, bias=bias, groups=groups)
 
 
 class ConvBNAct(nn.Module):
@@ -69,6 +117,11 @@ class BilinearUpsample(nn.ConvTranspose2d):
                          padding=factor // 2, groups=channels, bias=False)
         with torch.no_grad():
             self.weight.copy_(bilinear_upsample_kernel(factor, channels))
+
+    def forward(self, x):
+        return F.conv_transpose2d(x, self.weight.to(x.dtype), None,
+                                  self.stride, self.padding, 0, self.groups,
+                                  self.dilation)
 
 
 def adaptive_avg_pool2d(x, out_h: int, out_w: int):

@@ -74,7 +74,7 @@ class M3DRPN(nn.Module):
                  center_align: bool = False, shape_align: bool = False,
                  ida_dcnv2: bool = True, dcn_shift_clamp: Optional[float] = 1.0,
                  head_hidden: int = 256, sparse_align_topm: int = 0,
-                 align_thresh: float = 0.5):
+                 align_thresh: float = 0.5, sparse_align_train: bool = False):
         super().__init__()
         anchors = np.asarray(anchors)
         A = anchors.shape[0]
@@ -82,6 +82,7 @@ class M3DRPN(nn.Module):
         self.num_anchors = A
         self.attention = attention
         self.sparse_align_topm = sparse_align_topm
+        self.sparse_align_train = sparse_align_train
         self.align_thresh = align_thresh
         self.base = DLASeg(back_bone, down_ratio=feat_stride,
                            use_dcn=ida_dcnv2, shift_clamp=dcn_shift_clamp)
@@ -136,7 +137,8 @@ class M3DRPN(nn.Module):
         sel = None
         if (self.sparse_align_topm > 0
                 and (self.shape_align_mod is not None
-                     or self.center_align2d is not None)):
+                     or self.center_align2d is not None)
+                and (not self.training or self.sparse_align_train)):
             sel = confident_topm(fg_prob, self.align_thresh,
                                  self.sparse_align_topm)
 
@@ -239,9 +241,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 nn.init.uniform_(mod.weight, -bound, bound,
                                  generator=generator)
                 mod.bias.zero_()
-                if isinstance(mod, DCN):
-                    mod.conv_offset_mask.weight.zero_()
-                    mod.conv_offset_mask.bias.zero_()
+        # after the loop: it visits each DCN's offset conv after the DCN,
+        # as a Conv2d, and would draw it again
+        for mod in model.modules():
+            if isinstance(mod, DCN):
+                mod.conv_offset_mask.weight.zero_()
+                mod.conv_offset_mask.bias.zero_()
     return model
 
 
@@ -256,14 +261,21 @@ def _cast_params(model: nn.Module, dtype: torch.dtype) -> None:
             mod.running_var.data = mod.running_var.data.to(dtype)
 
 
-def build(conf, device=None, seed: int = 0) -> M3DRPN:
-    """Build the detector for `conf` in eval mode, initialised from `seed`.
+def build(conf, device=None, seed: int = 0, phase: str = "eval") -> M3DRPN:
+    """Build the detector for `conf`, initialised from `seed`.
 
     Runs on the card unless `device` names another device (`"cpu"` for the
     plain ops); raises when `device` is None and CUDA is absent. Weights are
-    drawn on the CPU, so a seed gives the same model on every device. The
-    slice is forward-only: parameters do not require grad.
+    drawn on the CPU, so a seed gives the same model on every device.
+
+    phase "eval": eval mode, parameters in conf.compute_dtype and not
+    requiring grad. phase "train": train mode, float32 master parameters
+    that require grad, computing in conf.compute_dtype (cast at use, as the
+    reference's flax modules with param_dtype float32 do); `model.eval()`
+    and `model.train()` switch it for an in-training evaluation.
     """
+    if phase not in ("eval", "train"):
+        raise ValueError(f"phase {phase!r}: 'eval' or 'train'")
     dev = resolve_device(device)
     if not conf.back_bone.startswith("dla"):
         raise NotImplementedError(f"backbone {conf.back_bone}")
@@ -277,10 +289,17 @@ def build(conf, device=None, seed: int = 0) -> M3DRPN:
         feat_stride=conf.feat_stride, attention=conf.attention,
         center_align=conf.center_align, shape_align=conf.shape_align,
         ida_dcnv2=conf.ida_dcnv2, dcn_shift_clamp=conf.dcn_shift_clamp,
-        sparse_align_topm=int(conf.sparse_align_topm))
+        sparse_align_topm=int(conf.sparse_align_topm),
+        sparse_align_train=bool(conf.sparse_align_train))
     init_weights(model, torch.Generator().manual_seed(seed))
-    model.requires_grad_(False)
-    model.eval()
-    _cast_params(model, torch.bfloat16 if conf.compute_dtype == "bfloat16"
-                 else torch.float32)
+    dtype = torch.bfloat16 if conf.compute_dtype == "bfloat16" \
+        else torch.float32
+    if phase == "train":
+        model.train()
+        if dtype != torch.float32:
+            model.base.base.compute_dtype = dtype
+    else:
+        model.requires_grad_(False)
+        model.eval()
+        _cast_params(model, dtype)
     return model.to(dev)

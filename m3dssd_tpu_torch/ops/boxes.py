@@ -1,8 +1,25 @@
-"""Channel-major box decoding: every operand keeps N (the anchors) last."""
+"""Channel-major box decoding (every operand keeps N, the anchors, last)
+and the loss's box helpers.
+
+Where the reference package's loss has a max, min or clip, these use
+torch.maximum / torch.minimum, whose gradient at a tie splits 0.5 as JAX's
+does (torch.clamp passes the whole gradient at its bounds).
+"""
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+
+def clip(x, lo=None, hi=None):
+    """jnp.clip with JAX's gradient: 0.5 to each side at a bound."""
+    if lo is not None:
+        x = torch.maximum(x, torch.full_like(x, lo))
+    if hi is not None:
+        x = torch.minimum(x, torch.full_like(x, hi))
+    return x
 
 
 def bbox_transform_inv_t(rois_t, deltas_t, means=None, stds=None):
@@ -52,3 +69,40 @@ def decode_bbox_3d_t(rois_t, deltas_t, anchors3d_t, means, stds):
     l3 = torch.exp(d[..., 5, :]) * anchors3d_t[3]
     ry = anchors3d_t[4] + d[..., 6, :]
     return torch.stack([x2d, y2d, z, w3, h3, l3, ry], dim=-2)
+
+
+def iou_list_t(a_t, b_t, eps: float = 1e-8):
+    """Elementwise IoU of channel-major box arrays [..., 4, N] -> [..., N]."""
+    ix1 = torch.maximum(a_t[..., 0, :], b_t[..., 0, :])
+    iy1 = torch.maximum(a_t[..., 1, :], b_t[..., 1, :])
+    ix2 = torch.minimum(a_t[..., 2, :], b_t[..., 2, :])
+    iy2 = torch.minimum(a_t[..., 3, :], b_t[..., 3, :])
+    inter = clip(ix2 - ix1, 0.0) * clip(iy2 - iy1, 0.0)
+    area_a = (a_t[..., 2, :] - a_t[..., 0, :]) * (a_t[..., 3, :] - a_t[..., 1, :])
+    area_b = (b_t[..., 2, :] - b_t[..., 0, :]) * (b_t[..., 3, :] - b_t[..., 1, :])
+    return inter / (area_a + area_b - inter + eps)
+
+
+def convert_alpha_to_rot(alpha, z3d, x3d):
+    """alpha -> rotY on the viewing ray, wrapped to (-pi, pi]."""
+    ry = alpha + torch.atan2(-z3d, x3d) + 0.5 * math.pi
+    return ry - torch.round(ry / (2 * math.pi)) * 2 * math.pi
+
+
+def backproject(p2_inv, x2d, y2d, z):
+    """Camera coordinates [..., 4] of image points (x2d, y2d) at depth z;
+    p2_inv [..., 4, 4] broadcasts against the points."""
+    pts = torch.stack([x2d * z, y2d * z, z, torch.ones_like(z)], dim=-1)
+    return torch.einsum("...ij,...j->...i", p2_inv, pts)
+
+
+def smooth_l1(pred, target):
+    """Huber / smooth-L1 with beta 1."""
+    d = torch.abs(pred - target)
+    return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
+
+
+def masked_mean(x, mask, eps: float = 1e-12):
+    """sum(x * mask) / sum(mask), with a safe denominator."""
+    m = mask.to(x.dtype)
+    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=eps)

@@ -15,7 +15,11 @@ per-corner bounds, then one [B*Ho*Wo, K*K*Cin] x [K*K*Cin, Cout] product.
 +-clamp, so each tap's bilinear sample is a triangle-weighted sum of
 (2R+1)^2 statically shifted copies of the input (R = ceil(clamp)). On a CUDA
 tensor it launches the hand-written kernel (ops/dcn_cuda.py); on a CPU
-tensor it runs `dcn_v2_shift_reference`, the plain PyTorch form.
+tensor it runs `dcn_v2_shift_reference`, the plain PyTorch form. Under
+autograd it runs as `DCNShiftFunction`, whose backward is the hand-written
+backward kernels on the card and `dcn_v2_shift_backward_reference` on the
+CPU: both follow the reference package's transpose and its subgradient
+conventions at the triangle and clip kinks.
 
 Sampling coordinates and bilinear/triangle weights are computed in float32
 whatever the feature dtype (bf16 cannot even represent integer pixel
@@ -157,7 +161,8 @@ def dcn_v2_shift_reference(x, offset, mask, weight, bias=None, *,
                            clamp: float = 1.0):
     """Plain PyTorch shifted-MAC form of the clipped-offset DCNv2 forward.
 
-    Offsets are clipped to [-clamp, clamp] in float32 before the triangle
+    Offsets are clipped to [-clamp, clamp] in float32 (float64 for float64
+    features) before the triangle
     weights max(0, 1 - |o - d|); the modulation mask is folded into the
     y-weights. As in the reference op, the shifted MACs accumulate in the
     feature dtype and each tap's product accumulates in >= float32.
@@ -167,7 +172,8 @@ def dcn_v2_shift_reference(x, offset, mask, weight, bias=None, *,
     KK = Kh * Kw
     pad, R, D = shift_geometry(clamp, Kh)
     P = pad + R
-    off = offset.to(torch.float32).clamp(-clamp, clamp)
+    ct = _coord_dtype(x.dtype)
+    off = offset.to(ct).clamp(-clamp, clamp)
     xp = F.pad(x, (0, 0, P, P, P, P))
     w2 = weight.reshape(KK, C, Cout)
     acc_t = torch.promote_types(x.dtype, torch.float32)
@@ -176,7 +182,7 @@ def dcn_v2_shift_reference(x, offset, mask, weight, bias=None, *,
         ky, kx = k // Kw, k % Kw
         oy = off[..., k, 0]
         ox = off[..., k, 1]
-        mk = mask[..., k].to(torch.float32)
+        mk = mask[..., k].to(ct)
         wy = [torch.clamp(1.0 - torch.abs(oy - d), min=0.0) * mk for d in D]
         wx = [torch.clamp(1.0 - torch.abs(ox - d), min=0.0) for d in D]
         acc = torch.zeros((B, H, W, C), dtype=x.dtype, device=x.device)
@@ -193,23 +199,235 @@ def dcn_v2_shift_reference(x, offset, mask, weight, bias=None, *,
     return out
 
 
+# subgradient conventions of the reference package's transpose (its
+# autodiff's): d|u|/du = +1 at 0, d max(t, 0)/dt = 0.5 at 0, so the clip
+# passes 0.5 at |o| = clamp. Torch's own autograd gives abs'(0) = 0.
+def _dabs(u):
+    return (u >= 0).to(u.dtype) * 2.0 - 1.0
+
+
+def _dmax0(t):
+    """d max(t, 0)/dt evaluated from t (0.5 exactly at the kink)."""
+    return (t > 0).to(t.dtype) + 0.5 * (t == 0).to(t.dtype)
+
+
+def _dtri(o, d):
+    """d/do of the triangle weight max(0, 1 - |o - d|)."""
+    u = o - d
+    return -_dmax0(1.0 - torch.abs(u)) * _dabs(u)
+
+
+def _dclip(o, clamp):
+    """d clip(o, -clamp, clamp)/do (1 inside, 0 outside, 0.5 at the edge)."""
+    a = torch.abs(o)
+    return (a < clamp).to(o.dtype) + 0.5 * (a == clamp).to(o.dtype)
+
+
+def _add_shifted(acc, z, sy: int, sx: int):
+    """acc[:, y, x] += z[:, y - sy, x - sx] where that is inside, in place
+    (the reverse of a shift by (sy, sx))."""
+    H, W = z.shape[1:3]
+    if abs(sy) >= H or abs(sx) >= W:
+        return
+    acc[:, max(sy, 0):H + min(sy, 0), max(sx, 0):W + min(sx, 0)] += \
+        z[:, max(-sy, 0):H - max(sy, 0), max(-sx, 0):W - max(sx, 0)]
+
+
+def _tap_weights(offset, mask, k: int, D, ct, clamp: float):
+    """(clipped oy, ox, mask, triangle weights wy, wx per knot) of tap k."""
+    off = offset[..., k, :].to(ct).clamp(-clamp, clamp)
+    oy, ox = off[..., 0], off[..., 1]
+    wy = [torch.clamp(1.0 - torch.abs(oy - d), min=0.0) for d in D]
+    wx = [torch.clamp(1.0 - torch.abs(ox - d), min=0.0) for d in D]
+    return oy, ox, mask[..., k].to(ct), wy, wx
+
+
+def shift_columns_reference(x, offset, mask, *, K: int = 3,
+                            clamp: float = 1.0):
+    """The forward's columns [B*H*W, K*K*C] in x's dtype: per tap the
+    mask- and triangle-weighted sum of the shifted slices, accumulated in
+    x's dtype (the plain version of the `dcn_shift_bwd_cols` kernel)."""
+    B, H, W, C = x.shape
+    pad, R, D = shift_geometry(clamp, K)
+    P = pad + R
+    ct = _coord_dtype(x.dtype)
+    xp = F.pad(x, (0, 0, P, P, P, P))
+    cols = []
+    for k in range(K * K):
+        ky, kx = k // K, k % K
+        _, _, mk, wy, wx = _tap_weights(offset, mask, k, D, ct, clamp)
+        acc = torch.zeros((B, H, W, C), dtype=x.dtype, device=x.device)
+        for iy, dy in enumerate(D):
+            ys = P - pad + ky + dy
+            for ix, dxs in enumerate(D):
+                xs = P - pad + kx + dxs
+                w = (mk * wy[iy] * wx[ix]).to(x.dtype)
+                acc = acc + w[..., None] * xp[:, ys:ys + H, xs:xs + W, :]
+        cols.append(acc.reshape(B * H * W, C))
+    return torch.cat(cols, dim=1)
+
+
+def shift_dx_reference(gk, offset, mask, x_shape, *, K: int = 3,
+                       clamp: float = 1.0):
+    """dx [B,H,W,C] in gk's dtype from the per-tap cotangent gk
+    [B*H*W, K*K*C]: the reverse shifts of the triangle-weighted gk,
+    accumulated in gk's dtype (the plain version of `dcn_shift_bwd_data`)."""
+    B, H, W, C = x_shape
+    pad, R, D = shift_geometry(clamp, K)
+    ct = _coord_dtype(gk.dtype)
+    dx = torch.zeros((B, H, W, C), dtype=gk.dtype, device=gk.device)
+    for k in range(K * K):
+        ky, kx = k // K, k % K
+        _, _, mk, wy, wx = _tap_weights(offset, mask, k, D, ct, clamp)
+        gkk = gk[:, k * C:(k + 1) * C].reshape(B, H, W, C)
+        for iy, dy in enumerate(D):
+            ay = (mk * wy[iy]).to(gk.dtype)[..., None] * gkk
+            sy = ky + dy - pad
+            for ix, dxs in enumerate(D):
+                z = wx[ix].to(gk.dtype)[..., None] * ay
+                _add_shifted(dx, z, sy, kx + dxs - pad)
+    return dx
+
+
+def shift_coord_reference(x, gk, offset, mask, *, K: int = 3,
+                          clamp: float = 1.0):
+    """(doffset [B,H,W,K*K,2] in offset's dtype, dmask [B,H,W,K*K] in
+    mask's dtype) from x and the per-tap cotangent gk [B*H*W, K*K*C]: per
+    tap the C-dot table t of gk against each shifted slice (accumulated in
+    >= float32), combined with the triangle weights and their subgradients,
+    times the clip's (the plain version of `dcn_shift_bwd_coord`)."""
+    B, H, W, C = x.shape
+    pad, R, D = shift_geometry(clamp, K)
+    P = pad + R
+    ct = _coord_dtype(x.dtype)
+    acc_t = torch.promote_types(x.dtype, torch.float32)
+    xp = F.pad(x, (0, 0, P, P, P, P))
+    doff, dmk_l = [], []
+    for k in range(K * K):
+        ky, kx = k // K, k % K
+        oy, ox, mk, wy, wx = _tap_weights(offset, mask, k, D, ct, clamp)
+        gkk = gk[:, k * C:(k + 1) * C].reshape(B, H, W, C).to(acc_t)
+        t = [[None] * len(D) for _ in D]
+        for iy, dy in enumerate(D):
+            ys = P - pad + ky + dy
+            for ix, dxs in enumerate(D):
+                xs = P - pad + kx + dxs
+                sl = xp[:, ys:ys + H, xs:xs + W, :].to(acc_t)
+                t[iy][ix] = (gkk * sl).sum(-1).to(ct)
+        dmk_l.append(sum(wy[iy] * wx[ix] * t[iy][ix]
+                         for iy in range(len(D)) for ix in range(len(D))))
+        doy = mk * sum(_dtri(oy, d) * wx[ix] * t[iy][ix]
+                       for iy, d in enumerate(D) for ix in range(len(D)))
+        dox = mk * sum(wy[iy] * _dtri(ox, d) * t[iy][ix]
+                       for iy in range(len(D)) for ix, d in enumerate(D))
+        doff.append(torch.stack([doy, dox], dim=-1))
+    doffset = torch.stack(doff, dim=3) * _dclip(offset.to(ct), clamp)
+    return (doffset.to(offset.dtype),
+            torch.stack(dmk_l, dim=-1).to(mask.dtype))
+
+
+def dcn_v2_shift_backward_reference(x, offset, mask, weight, g, *,
+                                    clamp: float = 1.0):
+    """(dx, doffset, dmask, dweight) of the bias-free shifted-MAC forward
+    for the output cotangent g [B,H,W,Cout], in plain PyTorch.
+
+    The written-out transpose of the reference package's
+    `_dcn_shift_core_bwd`: the recomputed columns against g for dW, gk =
+    g . W^T per tap, dx as the reverse shifts of the triangle-weighted gk,
+    and the C-dot table of gk against each shifted slice for the offset and
+    mask gradients. Coordinates and weights in float32 (float64 for float64
+    features); the products and the dot tables accumulate in >= float32.
+    """
+    B, H, W, C = x.shape
+    K, _, _, Cout = weight.shape
+    acc_t = torch.promote_types(x.dtype, torch.float32)
+    g2 = g.reshape(B * H * W, Cout).to(acc_t)
+    col = shift_columns_reference(x, offset, mask, K=K, clamp=clamp)
+    dweight = torch.matmul(col.to(acc_t).t(), g2).reshape(K, K, C, Cout)
+    del col
+    gk = torch.matmul(g2, weight.reshape(K * K * C, Cout).to(acc_t).t()) \
+        .to(x.dtype)
+    dx = shift_dx_reference(gk, offset, mask, x.shape, K=K, clamp=clamp)
+    doffset, dmask = shift_coord_reference(x, gk, offset, mask, K=K,
+                                           clamp=clamp)
+    return dx, doffset, dmask, dweight.to(weight.dtype)
+
+
+class DCNShiftFunction(torch.autograd.Function):
+    """Autograd of the shift DCN: the forward keeps only its inputs (x,
+    offset, mask, weight) and the backward recomputes the columns.
+
+    On CUDA tensors the forward launches the forward kernel and the backward
+    the backward kernels (ops/dcn_cuda.py), each on detached operands; on
+    CPU tensors both run the plain versions. There is no other path: a
+    CUDA tensor reaches the kernels or raises.
+    """
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, weight, bias, clamp):
+        ctx.clamp = clamp
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        ctx.save_for_backward(x, offset, mask, weight)
+        if x.is_cuda:
+            from .dcn_cuda import dcn_v2_shift_cuda
+
+            return dcn_v2_shift_cuda(
+                x.detach().contiguous(), offset.detach().contiguous(),
+                mask.detach().contiguous(), weight.detach().contiguous(),
+                None if bias is None else bias.detach().contiguous(),
+                clamp=clamp)
+        return dcn_v2_shift_reference(x, offset, mask, weight, bias,
+                                      clamp=clamp)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, offset, mask, weight = ctx.saved_tensors
+        g = g.to(x.dtype).contiguous()
+        if x.is_cuda:
+            from .dcn_cuda import dcn_v2_shift_backward_cuda
+
+            dx, doff, dm, dw = dcn_v2_shift_backward_cuda(
+                x.detach().contiguous(), offset.detach().contiguous(),
+                mask.detach().contiguous(), weight.detach().contiguous(), g,
+                clamp=ctx.clamp)
+        else:
+            dx, doff, dm, dw = dcn_v2_shift_backward_reference(
+                x, offset, mask, weight, g, clamp=ctx.clamp)
+        db = None
+        if ctx.bias_dtype is not None:
+            acc = torch.promote_types(g.dtype, torch.float32)
+            db = g.to(acc).sum((0, 1, 2)).to(ctx.bias_dtype)
+        return (dx, doff.to(offset.dtype), dm.to(mask.dtype),
+                dw.to(weight.dtype), db, None)
+
+
 def dcn_v2_shift(x, offset, mask, weight, bias=None, *, clamp: float = 1.0):
     """Deformable conv v2 with offsets clipped to [-clamp, clamp]
     (stride 1, dilation 1, padding K//2).
 
     A CUDA tensor launches the hand-written kernel; a CPU tensor runs the
-    plain form. Operands are brought to the kernel's types here: offsets and
-    mask in float32, weight in x's dtype, bias in float32.
+    plain form. On the card the operands are brought to the kernel's types
+    here: offsets and mask in float32, weight in x's dtype, bias in
+    float32. When any operand requires grad (and grad is enabled) the call
+    goes through `DCNShiftFunction`.
     """
+    if x.is_cuda:
+        offset = offset.to(torch.float32)
+        mask = mask.to(torch.float32)
+        weight = weight.to(x.dtype)
+        bias = None if bias is None else bias.to(torch.float32)
+    elif x.device.type != "cpu":
+        raise NotImplementedError(f"dcn_v2_shift on {x.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, offset, mask, weight, bias)):
+        return DCNShiftFunction.apply(x, offset, mask, weight, bias,
+                                      float(clamp))
     if x.is_cuda:
         from .dcn_cuda import dcn_v2_shift_cuda
 
-        return dcn_v2_shift_cuda(
-            x.contiguous(), offset.to(torch.float32).contiguous(),
-            mask.to(torch.float32).contiguous(),
-            weight.to(x.dtype).contiguous(),
-            None if bias is None else bias.to(torch.float32).contiguous(),
-            clamp=clamp)
-    if x.device.type != "cpu":
-        raise NotImplementedError(f"dcn_v2_shift on {x.device}")
+        return dcn_v2_shift_cuda(x.contiguous(), offset.contiguous(),
+                                 mask.contiguous(), weight.contiguous(),
+                                 None if bias is None else bias.contiguous(),
+                                 clamp=clamp)
     return dcn_v2_shift_reference(x, offset, mask, weight, bias, clamp=clamp)

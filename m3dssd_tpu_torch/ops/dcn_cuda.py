@@ -1,9 +1,18 @@
-"""Launch wrapper of the hand-written shift-DCN kernels (csrc/dcn_shift.cu).
+"""Launch wrappers of the hand-written shift-DCN kernels.
 
-The kernels replace the reference package's TPU kernel
-`m3dssd_tpu/ops/dcn_pallas.py:dcn_v2_shift_pallas`; their plain PyTorch
-version is `ops/dcn.py:dcn_v2_shift_reference`. Forward only: a tensor that
-requires grad is refused.
+The forward kernels (csrc/dcn_shift.cu) replace the reference package's
+TPU kernel `m3dssd_tpu/ops/dcn_pallas.py:dcn_v2_shift_pallas`; their plain
+PyTorch version is `ops/dcn.py:dcn_v2_shift_reference`. The forward wrapper
+refuses a tensor that requires grad: autograd reaches the kernels through
+`ops/dcn.py:DCNShiftFunction`, which passes detached operands.
+
+The backward kernels (csrc/dcn_shift_bwd.cu) replace the reference
+package's transpose `m3dssd_tpu/ops/dcn.py:_dcn_shift_core_bwd`; their
+plain version is `ops/dcn.py:dcn_v2_shift_backward_reference`.
+`dcn_v2_shift_backward_cuda` runs the two matrix products on cuBLAS and the
+column build, the input gradient and the offset/mask gradients as the
+three kernels, each with its own wrapper and launch count in
+`bwd_launches`.
 
 The dtype selects the kernel: bfloat16 runs the tensor-core (wgmma) kernel
 with the launch plan of `plan`, float32 the CUDA-core kernel. `launches`
@@ -23,7 +32,10 @@ import torch
 from .dcn import shift_geometry
 
 launches = 0
+# launches of each backward kernel (one per wrapper call)
+bwd_launches = {"cols": 0, "data": 0, "coord": 0}
 _lib = None
+_bwd_lib = None
 
 # geometry of the bfloat16 kernel; must agree with csrc/dcn_shift.cu
 TILE_H, TILE_W = 8, 16      # output pixels per block: one 8 x 16 tile
@@ -83,7 +95,7 @@ def _library():
     if _lib is None:
         from . import _build
 
-        lib = ctypes.CDLL(_build.build()[0])
+        lib = ctypes.CDLL(_build.build(["dcn_shift"])["dcn_shift"][0])
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.dcn_shift_forward_f32.argtypes = [p] * 6 + [i] * 6 + [f, i, p]
         lib.dcn_shift_forward_f32.restype = i
@@ -94,6 +106,25 @@ def _library():
         lib.dcn_shift_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
+
+
+def _bwd_library():
+    global _bwd_lib
+    if _bwd_lib is None:
+        from . import _build
+
+        lib = ctypes.CDLL(_build.build(["dcn_shift_bwd"])["dcn_shift_bwd"][0])
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        for name, n_ptr in (("dcn_shift_bwd_cols", 4),
+                            ("dcn_shift_bwd_data", 4),
+                            ("dcn_shift_bwd_coord", 6)):
+            fn = getattr(lib, name)
+            fn.argtypes = [p] * n_ptr + [i] * 6 + [f, i, p]
+            fn.restype = i
+        lib.dcn_shift_bwd_error_string.argtypes = [i]
+        lib.dcn_shift_bwd_error_string.restype = ctypes.c_char_p
+        _bwd_lib = lib
+    return _bwd_lib
 
 
 def num_sms(device: torch.device) -> int:
@@ -191,3 +222,121 @@ def dcn_v2_shift_cuda(x, offset, mask, weight, bias=None, *,
         raise RuntimeError(f"dcn_shift_forward failed: {msg} ({rc})")
     launches += 1
     return out
+
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _bwd_problem(x_shape, K: int, clamp: float, dtype):
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"dtype {dtype}: the backward kernels take float32 "
+                        "or bfloat16")
+    B, H, W, C = x_shape
+    _, R, _ = shift_geometry(clamp, K)
+    if not clamp > 0 or R not in (1, 2):
+        raise ValueError(f"clamp {clamp}: the kernels take 0 < clamp <= 2")
+    if K % 2 == 0 or B * H * W * C == 0:
+        raise ValueError(f"K={K}, x {tuple(x_shape)}: needs odd K and a "
+                         "non-empty problem")
+    return B, H, W, C, R
+
+
+def _run(name, *args):
+    lib = _bwd_library()
+    rc = getattr(lib, name)(*args)
+    if rc != 0:
+        msg = lib.dcn_shift_bwd_error_string(rc).decode()
+        raise RuntimeError(f"{name} failed: {msg} ({rc})")
+
+
+def dcn_shift_bwd_cols_cuda(x, offset, mask, *, K: int = 3,
+                            clamp: float = 1.0):
+    """The forward's triangle-weighted columns [B*H*W, K*K*C] in x's dtype
+    (x [B,H,W,C]; offset [B,H,W,K*K,2] and mask [B,H,W,K*K] float32)."""
+    B, H, W, C, R = _bwd_problem(x.shape, K, clamp, x.dtype)
+    KK, dev = K * K, x.device
+    _check("x", x, (B, H, W, C), x.dtype, dev)
+    _check("offset", offset, (B, H, W, KK, 2), torch.float32, dev)
+    _check("mask", mask, (B, H, W, KK), torch.float32, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"dcn_shift_bwd_cols_cuda takes CUDA tensors, got "
+                         f"{dev}")
+    col = torch.empty((B * H * W, KK * C), dtype=x.dtype, device=dev)
+    with torch.cuda.device(dev):
+        _run("dcn_shift_bwd_cols", x.data_ptr(), offset.data_ptr(),
+             mask.data_ptr(), col.data_ptr(), _DTYPE_CODE[x.dtype], B, H, W,
+             C, K, float(clamp), R, torch.cuda.current_stream(dev).cuda_stream)
+    bwd_launches["cols"] += 1
+    return col
+
+
+def dcn_shift_bwd_data_cuda(gk, offset, mask, x_shape, *, K: int = 3,
+                            clamp: float = 1.0):
+    """dx [B,H,W,C] in gk's dtype from the per-tap cotangent gk
+    [B*H*W, K*K*C], in gather form (no atomics)."""
+    B, H, W, C, R = _bwd_problem(tuple(x_shape), K, clamp, gk.dtype)
+    KK, dev = K * K, gk.device
+    _check("gk", gk, (B * H * W, KK * C), gk.dtype, dev)
+    _check("offset", offset, (B, H, W, KK, 2), torch.float32, dev)
+    _check("mask", mask, (B, H, W, KK), torch.float32, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"dcn_shift_bwd_data_cuda takes CUDA tensors, got "
+                         f"{dev}")
+    dx = torch.empty((B, H, W, C), dtype=gk.dtype, device=dev)
+    with torch.cuda.device(dev):
+        _run("dcn_shift_bwd_data", gk.data_ptr(), offset.data_ptr(),
+             mask.data_ptr(), dx.data_ptr(), _DTYPE_CODE[gk.dtype], B, H, W,
+             C, K, float(clamp), R, torch.cuda.current_stream(dev).cuda_stream)
+    bwd_launches["data"] += 1
+    return dx
+
+
+def dcn_shift_bwd_coord_cuda(x, gk, offset, mask, *, K: int = 3,
+                             clamp: float = 1.0):
+    """(doffset [B,H,W,K*K,2], dmask [B,H,W,K*K]) in float32 from x and the
+    per-tap cotangent gk [B*H*W, K*K*C], with the reference package's
+    subgradient conventions at the triangle and clip kinks."""
+    B, H, W, C, R = _bwd_problem(x.shape, K, clamp, x.dtype)
+    KK, dev = K * K, x.device
+    _check("x", x, (B, H, W, C), x.dtype, dev)
+    _check("gk", gk, (B * H * W, KK * C), x.dtype, dev)
+    _check("offset", offset, (B, H, W, KK, 2), torch.float32, dev)
+    _check("mask", mask, (B, H, W, KK), torch.float32, dev)
+    if dev.type != "cuda":
+        raise ValueError(f"dcn_shift_bwd_coord_cuda takes CUDA tensors, got "
+                         f"{dev}")
+    doffset = torch.empty((B, H, W, KK, 2), dtype=torch.float32, device=dev)
+    dmask = torch.empty((B, H, W, KK), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        _run("dcn_shift_bwd_coord", x.data_ptr(), gk.data_ptr(),
+             offset.data_ptr(), mask.data_ptr(), doffset.data_ptr(),
+             dmask.data_ptr(), _DTYPE_CODE[x.dtype], B, H, W, C, K,
+             float(clamp), R, torch.cuda.current_stream(dev).cuda_stream)
+    bwd_launches["coord"] += 1
+    return doffset, dmask
+
+
+def dcn_v2_shift_backward_cuda(x, offset, mask, weight, g, *,
+                               clamp: float = 1.0):
+    """(dx, doffset, dmask, dweight) of the bias-free shift DCN for the
+    output cotangent g [B,H,W,Cout] (x's dtype).
+
+    The products gk = g . W^T and dW = col^T . g run on cuBLAS in x's dtype
+    (float32 sums); the column build, dx and the offset/mask gradients are
+    the hand-written kernels. dx comes back in x's dtype, doffset and dmask
+    in float32, dweight in weight's dtype. The columns are freed before gk
+    is formed, so at most one [B*H*W, K*K*C] buffer is live at a time.
+    """
+    B, H, W, C = x.shape
+    K, _, _, Cout = weight.shape
+    _check("weight", weight, (K, K, C, Cout), x.dtype, x.device)
+    _check("g", g, (B, H, W, Cout), x.dtype, x.device)
+    g2 = g.reshape(B * H * W, Cout)
+    col = dcn_shift_bwd_cols_cuda(x, offset, mask, K=K, clamp=clamp)
+    dweight = torch.matmul(col.t(), g2).reshape(K, K, C, Cout)
+    del col
+    gk = torch.matmul(g2, weight.reshape(K * K * C, Cout).t())
+    dx = dcn_shift_bwd_data_cuda(gk, offset, mask, x.shape, K=K, clamp=clamp)
+    doffset, dmask = dcn_shift_bwd_coord_cuda(x, gk, offset, mask, K=K,
+                                              clamp=clamp)
+    return dx, doffset, dmask, dweight

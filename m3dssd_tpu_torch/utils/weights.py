@@ -14,6 +14,9 @@ reference's, so the walk is mechanical; only the layouts change:
   * upsampling kernels [2f, 2f, 1, C] (a correlation over the lhs-dilated
     input) -> ConvTranspose2d weight [C, 1, 2f, 2f], spatially flipped,
     since a transposed convolution applies the flipped kernel.
+
+`sgd_state_from_optax` carries an optax SGD momentum trace across the same
+way, as the port optimizer's `momentum_buffer`s.
 """
 
 from __future__ import annotations
@@ -43,25 +46,43 @@ def _key(path: Tuple[str, ...], name: str) -> str:
     return ".".join(path[:-1] + (name,))
 
 
-def from_flax_variables(variables) -> Dict[str, torch.Tensor]:
-    """{"params", "batch_stats"} trees -> the port's state dict."""
-    out: Dict[str, torch.Tensor] = {}
-    for path, leaf in _leaves(variables["params"]):
+def _param_entries(params) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(port parameter name, tensor) for every leaf of a params-shaped
+    tree (the parameters themselves, or an optimizer buffer per
+    parameter)."""
+    for path, leaf in _leaves(params):
         name = path[-1]
         a = np.asarray(leaf, np.float32)
         if name == "kernel":
             if len(path) > 1 and path[-2].startswith("ups_"):
                 a = a[::-1, ::-1]
-            out[_key(path, "weight")] = _tensor(a.transpose(3, 2, 0, 1))
+            yield _key(path, "weight"), _tensor(a.transpose(3, 2, 0, 1))
         elif name == "scale":
-            out[_key(path, "weight")] = _tensor(a)
-            out[_key(path, "num_batches_tracked")] = torch.tensor(0)
+            yield _key(path, "weight"), _tensor(a)
         elif name in ("bias", "weight"):
-            out[_key(path, name)] = _tensor(a)
+            yield _key(path, name), _tensor(a)
         else:
             raise KeyError(f"unknown parameter {'/'.join(path)}")
+
+
+def from_flax_variables(variables) -> Dict[str, torch.Tensor]:
+    """{"params", "batch_stats"} trees -> the port's state dict."""
+    out: Dict[str, torch.Tensor] = dict(_param_entries(variables["params"]))
+    for path, _ in _leaves(variables["params"]):
+        if path[-1] == "scale":
+            out[_key(path, "num_batches_tracked")] = torch.tensor(0)
     for path, leaf in _leaves(variables.get("batch_stats", {})):
         if path[-1] not in _STATS:
             raise KeyError(f"unknown statistic {'/'.join(path)}")
         out[_key(path, _STATS[path[-1]])] = _tensor(leaf)
     return out
+
+
+def sgd_state_from_optax(trace, count: int) -> dict:
+    """An optax SGD momentum `trace` (a params-shaped tree) and its update
+    count -> the state dict of the port's `train.state.Optimizer` ("sgd"),
+    each trace leaf becoming that parameter's `momentum_buffer`, so a run
+    can continue in the port from a mid-training reference state."""
+    return {"solver": "sgd", "count": int(count), "mini_step": 0, "acc": {},
+            "state": {name: {"momentum_buffer": t}
+                      for name, t in _param_entries(trace)}}

@@ -129,3 +129,92 @@ def test_tiny_flagship_neck_runs_the_kernel_eight_times(cuda_device):
     for k in ("scores", "bbox_2d", "bbox_3d"):
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-3,
                                    atol=1e-3)
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1e-12))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,clamp", [((2, 6, 11, 8, 16), 1.0),
+                                         ((1, 5, 11, 40, 72), 1.5),
+                                         ((1, 3, 2, 24, 8), 1.5)])
+def test_dcn_shift_backward_kernels_match_plain(cuda_device, dtype, shape,
+                                                clamp):
+    """The three backward kernels and the whole backward against their
+    plain versions, with a third of the offsets exactly on a kink (0, +-1,
+    +-clamp). float32 sums in another order (1e-4 of the largest
+    magnitude); bfloat16 also rounds where the plain version rounds after
+    every shifted MAC (5e-2). A 3x2 image is smaller than the R = 2 window.
+    Each kernel counts one launch per call."""
+    x, off, m, w, _ = _case(21, *shape, dtype, cuda_device, clamp=clamp)
+    rng = np.random.default_rng(5)
+    kinks = torch.tensor([0.0, 1.0, -1.0, clamp, -clamp], device=cuda_device)
+    pick = torch.tensor(rng.random(off.shape) < 0.33, device=cuda_device)
+    which = torch.tensor(rng.integers(0, 5, off.shape), device=cuda_device)
+    off = torch.where(pick, kinks[which], off).contiguous()
+    g = torch.tensor(rng.normal(size=shape[:3] + (shape[4],)),
+                     dtype=dtype, device=cuda_device)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    before = dict(dcn_cuda.bwd_launches)
+    got = dcn_cuda.dcn_v2_shift_backward_cuda(x, off, m, w, g, clamp=clamp)
+    want = tdcn.dcn_v2_shift_backward_reference(x, off, m, w, g, clamp=clamp)
+    torch.cuda.synchronize()
+    assert all(dcn_cuda.bwd_launches[k] == before[k] + 1 for k in before)
+    for name, a, b in zip(("dx", "doffset", "dmask", "dweight"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _rel(a, b) <= tol, name
+    gk = torch.matmul(g.reshape(-1, shape[4]), w.reshape(-1, shape[4]).t())
+    assert _rel(dcn_cuda.dcn_shift_bwd_cols_cuda(x, off, m, clamp=clamp),
+                tdcn.shift_columns_reference(x, off, m, clamp=clamp)) <= tol
+    assert _rel(dcn_cuda.dcn_shift_bwd_data_cuda(gk, off, m, x.shape,
+                                                 clamp=clamp),
+                tdcn.shift_dx_reference(gk, off, m, x.shape,
+                                        clamp=clamp)) <= tol
+    for a, b in zip(dcn_cuda.dcn_shift_bwd_coord_cuda(x, gk, off, m,
+                                                      clamp=clamp),
+                    tdcn.shift_coord_reference(x, gk, off, m, clamp=clamp)):
+        assert _rel(a, b) <= tol
+
+
+@pytest.mark.cuda
+def test_tiny_flagship_train_step_on_the_card(cuda_device):
+    """A train step of the tiny flagship on the card launches the forward
+    kernel and each backward kernel 8 times (the neck's 8 DCN layers) and
+    agrees with the same step on the CPU; no plain backward runs on the
+    card, and the raw kernel keeps refusing tensors that require grad."""
+    from m3dssd_tpu_torch.anchors import locate_anchors
+    from m3dssd_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+
+    conf = flagship_conf((64, 128), num_scales=2, backbone="dla34",
+                         dtype="float32").replace(warmup=0.0,
+                                                  box_samples=1.0)
+    rois = locate_anchors(conf.anchors, conf.feat_size, conf.feat_stride)
+    N = rois.shape[0]
+    rng = np.random.default_rng(0)
+    u = rng.uniform(size=(2, N))
+    fg, ign = u < 0.03, u > 0.9
+    batch = {"images": torch.tensor(rng.normal(size=(2, 64, 128, 3)),
+                                    dtype=torch.float32),
+             "labels": torch.tensor(np.where(ign, 3000, np.where(fg, 1, 0)),
+                                    dtype=torch.int32),
+             "labels_fg": torch.tensor(fg, dtype=torch.int8),
+             "labels_bg": torch.tensor(~fg & ~ign, dtype=torch.int8),
+             "labels_ign": torch.tensor(ign, dtype=torch.int8),
+             "bbox_2d": torch.zeros(2, 4, N), "bbox_3d": torch.zeros(2, 7, N),
+             "any_val": torch.ones(2, dtype=torch.int32)}
+    losses = {}
+    for dev in ("cpu", cuda_device):
+        state = create_train_state(conf, build(conf, device=dev, seed=0,
+                                               phase="train"), 100)
+        before = (dcn_cuda.launches, dict(dcn_cuda.bwd_launches))
+        losses[str(dev)] = float(make_train_step(conf, rois)(state,
+                                                             batch)["loss"])
+        if dev != "cpu":
+            assert dcn_cuda.launches == before[0] + 8
+            assert all(dcn_cuda.bwd_launches[k] == before[1][k] + 8
+                       for k in before[1])
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
