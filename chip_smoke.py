@@ -111,8 +111,9 @@ def ptxas_summary(report):
         if m:
             tail = m.group(2)
             r = re.search(r"Li(\d)E", tail)
-            args = ([("bf16" if "bfloat16" in tail else "f32")]
-                    if "bwd" in m.group(1) else []) \
+            dt = "bf16" if "bfloat16" in tail else \
+                "f32" if tail.startswith("If") else None
+            args = ([dt] if dt and "bwd" in m.group(1) else []) \
                 + ([f"R={r.group(1)}"] if r else [])
             name = m.group(1) + (f"<{','.join(args)}>" if args else "")
             out[name] = []
@@ -739,11 +740,23 @@ BWD_TOL = {torch.float32: {"dx": 1e-4, "doffset": 1e-4, "dmask": 1e-4,
 # share of offsets drawn exactly on a kink: 0, the knots +-1, +-clamp
 TIE_SHARE = 0.3
 BWD_KERNELS = ("cols", "data", "coord")
+# the limit each kernel's output is held to against its plain version
+BWD_KERNEL_TOL = {"cols": "dweight", "data": "dx", "coord": "doffset"}
+# (kind, (B, H, W, Cin, Cout), clamp) of the cols and coord kernels' tiling
+# (ops/dcn_cuda.py:bwd_plan): tiles partial in H and W over two images
+# with a partial channel chunk; every offset exactly on +-clamp ("edge");
+# C = 20, no whole number of 16-byte bf16 vectors (the wrappers pad C)
+BWD_TILING_CASES = [("tiles", (2, 13, 21, 72, 16), 1.0),
+                    ("edge", (1, 9, 17, 40, 8), 1.0),
+                    ("edge", (1, 9, 17, 40, 8), 1.5),
+                    ("c20", (2, 5, 11, 20, 8), 1.0),
+                    ("c20", (2, 5, 11, 20, 8), 1.5)]
 
 
-def bwd_inputs(B, H, W, C, Cout, dtype, device, seed, clamp):
+def bwd_inputs(B, H, W, C, Cout, dtype, device, seed, clamp, edge=False):
     """Inputs of one backward call: x, offset (TIE_SHARE of them exactly
-    on a kink), mask, weight and the output cotangent g."""
+    on a kink, or with `edge` all of them on +-clamp), mask, weight and the
+    output cotangent g."""
     x, off, mask, w, _ = shift_dcn_inputs(B, H, W, C, Cout, dtype, "cpu",
                                           seed, clamp)
     g = torch.Generator(device="cpu").manual_seed(seed + 1000)
@@ -751,6 +764,8 @@ def bwd_inputs(B, H, W, C, Cout, dtype, device, seed, clamp):
     pick = torch.rand(off.shape, generator=g) < TIE_SHARE
     which = torch.randint(0, len(kinks), off.shape, generator=g)
     off = torch.where(pick, kinks[which], off)
+    if edge:
+        off = torch.where(off >= 0, clamp, -clamp)
     gout = torch.randn(B, H, W, Cout, generator=g).to(dtype)
     return (x.to(device), off.to(device), mask.to(device), w.to(device),
             gout.to(device))
@@ -794,7 +809,8 @@ def phase_bwd_vs_plain(device):
     cases = ([("neck", (8,) + s, 1.0) for s in NECK_SHAPES_384]
              + [("odd", ODD_SHAPE, c) for c in ODD_CLAMPS]
              + [("ragged", s, c) for s, c in RAGGED_CASES]
-             + [("neck c1.5", (8,) + NECK_SHAPES_384[4], 1.5)])
+             + [("neck c1.5", (8,) + NECK_SHAPES_384[4], 1.5)]
+             + BWD_TILING_CASES)
     keys = ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")
     totals = {k: dict.fromkeys(keys, 0.0) for k in BWD_KERNELS}
     prod_ms = 0.0
@@ -806,7 +822,8 @@ def phase_bwd_vs_plain(device):
         name = str(dtype).replace("torch.", "")
         for i, (kind, (B, H, W, C, Co), clamp) in enumerate(cases):
             x, off, mask, w, g = bwd_inputs(B, H, W, C, Co, dtype, device,
-                                            seed=100 + i, clamp=clamp)
+                                            seed=100 + i, clamp=clamp,
+                                            edge=kind == "edge")
             got = dc.dcn_v2_shift_backward_cuda(x, off, mask, w, g,
                                                 clamp=clamp)
             want = tdcn.dcn_v2_shift_backward_reference(x, off, mask, w, g,
@@ -852,6 +869,14 @@ def phase_bwd_vs_plain(device):
                 pa = pa if isinstance(pa, tuple) else (pa,)
                 abs_err = max(float((u.float() - v.float()).abs().max())
                               for u, v in zip(ka, pa))
+                rel = max(float((u.float() - v.float()).abs().max())
+                          / max(float(v.float().abs().max()), 1e-12)
+                          for u, v in zip(ka, pa))
+                lim = BWD_TOL[dtype][BWD_KERNEL_TOL[k]]
+                check(math.isfinite(rel) and rel <= lim,
+                      f"{k} kernel disagrees with plain at "
+                      f"{(B, H, W, C, Co)} clamp {clamp} {name}: relative "
+                      f"max|diff| {rel} (limit {lim})")
                 if dtype == torch.bfloat16:
                     max_err[k] = max(max_err[k], abs_err)
                 del ka, pa

@@ -39,13 +39,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     train mode normalises by the batch mean and the biased batch variance
     and updates the running statistics, in float32, as
     r <- 0.9 r + 0.1 stat with the variance E[x^2] - E[x]^2 (clipped at 0)
-    the reference's flax BatchNorm keeps."""
+    the reference's flax BatchNorm keeps.
+
+    On CPU tensors train mode computes the statistics and the normalisation
+    in float64: torch's CPU kernel for channels_last inputs (the model's
+    layout) sums each channel, forward and backward, in float32 in one
+    chain per thread, which moved a CPU train step's updates away from the
+    reference's by an amount that changed with the thread count.
+    """
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        cpu = x.device.type == "cpu"
+        xs = x.double() if cpu else x
         with torch.no_grad():
-            xf = x.detach().to(torch.promote_types(x.dtype, torch.float32))
+            xf = xs.detach().to(torch.promote_types(xs.dtype, torch.float32))
             mean = xf.mean((0, 2, 3))
             var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean,
                               min=0.0)
@@ -54,8 +63,15 @@ class BatchNorm2d(nn.BatchNorm2d):
             rm.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean.to(rm.dtype))
             rv.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var.to(rv.dtype))
             self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias,
-                            training=True, eps=self.eps)
+        if not cpu:
+            return F.batch_norm(x, None, None, self.weight, self.bias,
+                                training=True, eps=self.eps)
+        mean = xs.mean((0, 2, 3), keepdim=True)
+        var = torch.clamp((xs * xs).mean((0, 2, 3), keepdim=True)
+                          - mean * mean, min=0.0)
+        w = self.weight.double()[None, :, None, None]
+        b = self.bias.double()[None, :, None, None]
+        return ((xs - mean) * torch.rsqrt(var + self.eps) * w + b).to(x.dtype)
 
 
 def batch_norm(channels: int) -> BatchNorm2d:

@@ -6,11 +6,13 @@ a plain C interface, loaded with `ctypes` by its wrapper (`dcn_cuda.py`):
 backward. The build happens at first use, into `m3dssd_tpu_torch/_build/`
 (listed in .gitignore), under a name that carries a hash of the source and
 the flags, so an edited source is rebuilt and an unchanged one is reused.
+The hash covers the headers the sources share (`csrc/*.cuh`) too.
 `build()` starts one `nvcc` per missing library, all at once.
 """
 
 from __future__ import annotations
 
+import glob
 import hashlib
 import os
 import shutil
@@ -37,8 +39,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(SOURCES[name], "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(glob.glob(os.path.join(_PKG, "csrc", "*.cuh")))
+    for path in [SOURCES[name], *headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:12]}.so")
 
 

@@ -12,7 +12,8 @@ plain version is `ops/dcn.py:dcn_v2_shift_backward_reference`.
 `dcn_v2_shift_backward_cuda` runs the two matrix products on cuBLAS and the
 column build, the input gradient and the offset/mask gradients as the
 three kernels, each with its own wrapper and launch count in
-`bwd_launches`.
+`bwd_launches`. The column build and the offset/mask gradients run on the
+launch plan of `bwd_plan` (pixel tiles over a shared-memory x slab).
 
 The dtype selects the kernel: bfloat16 runs the tensor-core (wgmma) kernel
 with the launch plan of `plan`, float32 the CUDA-core kernel. `launches`
@@ -90,6 +91,71 @@ def plan(B: int, H: int, W: int, C: int, Cout: int, R: int, num_sms: int,
                 split=split, chunks_per_split=cps, smem_bytes=smem)
 
 
+# geometry of the backward's cols and coord kernels; must agree with
+# csrc/dcn_shift_bwd.cu
+BWD_ROW_BYTES = {"cols": 128, "coord": 64}   # bytes of a chunk's pixel row
+BWD_BLOCKS_PER_SM = {"cols": 2, "coord": 1}
+
+
+class BwdPlan(NamedTuple):
+    """Launch geometry of the backward's cols or coord kernel."""
+    tile: Tuple[int, int]        # (TILE_H, TILE_W) pixels per block
+    tiles: Tuple[int, int]       # (tiles over H, tiles over W) per image
+    grid: Tuple[int, int]        # (B * tiles, split)
+    chunk: int                   # channels per chunk
+    split: int                   # ways the channel chunks are split
+    chunks_per_split: int        # chunks each split walks
+    smem_bytes: int              # dynamic shared memory per block
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(kernel: str, B: int, H: int, W: int, C: int, R: int,
+             dtype: torch.dtype, num_sms: int, K: int = 3) -> BwdPlan:
+    """Tiles, grid, chunk and shared memory of the backward's `cols` or
+    `coord` kernel.
+
+    Each block owns an 8 x 16 pixel tile of one image and walks the
+    channels in chunks of 128 bytes per pixel (cols) or 64 (coord); two
+    x slabs (the tile plus a halo of K/2 + R) are double-buffered in shared
+    memory, beside cols' per-(pixel, tap) corner table or coord's two
+    staged gk boxes. Where the tiles fill fewer than the card's block
+    slots (2 per SM for cols, 1 for coord), the chunks are split over
+    blockIdx.y so that the blocks reach the slots without a second wave
+    (coord's splits cost a reduce of their partial tables).
+    """
+    if kernel not in BWD_ROW_BYTES:
+        raise ValueError(f"unknown backward kernel {kernel!r}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dtype {dtype}: the backward kernels take float32 "
+                        "or bfloat16")
+    if kernel == "coord" and K != 3:
+        raise ValueError(f"K={K}: the coord kernel takes K = 3 (one warp "
+                         "per tap)")
+    P = K // 2 + R
+    slab_px = (TILE_H + 2 * P) * (TILE_W + 2 * P)
+    pairs = TILE_H * TILE_W * K * K
+    row = BWD_ROW_BYTES[kernel]
+    if kernel == "cols":
+        smem = 2 * slab_px * row + pairs * (16 + 8)
+    else:   # 1 KB alignment slack, two stages of TMA boxes at 1 KB bounds
+        smem = 1024 + 2 * (_cdiv(slab_px * row, 1024) * 1024 + pairs * row)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K={K}, R={R}: the {kernel} kernel needs {smem} "
+                         f"bytes of shared memory, more than {SMEM_LIMIT}")
+    chunk = row // (torch.finfo(dtype).bits // 8)
+    tiles = (_cdiv(H, TILE_H), _cdiv(W, TILE_W))
+    blocks = B * tiles[0] * tiles[1]
+    nchunks = _cdiv(C, chunk)
+    slots = BWD_BLOCKS_PER_SM[kernel] * num_sms
+    cps = nchunks
+    if blocks < slots:
+        cps = _cdiv(nchunks, min(nchunks, MAX_SPLIT, slots // blocks))
+    split = _cdiv(nchunks, cps)
+    return BwdPlan(tile=(TILE_H, TILE_W), tiles=tiles, grid=(blocks, split),
+                   chunk=chunk, split=split, chunks_per_split=cps,
+                   smem_bytes=smem)
+
+
 def _library():
     global _lib
     if _lib is None:
@@ -115,11 +181,13 @@ def _bwd_library():
 
         lib = ctypes.CDLL(_build.build(["dcn_shift_bwd"])["dcn_shift_bwd"][0])
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        for name, n_ptr in (("dcn_shift_bwd_cols", 4),
-                            ("dcn_shift_bwd_data", 4),
-                            ("dcn_shift_bwd_coord", 6)):
+        # pointers, dtype B H W C K, clamp R, then the plan's tiles_y
+        # tiles_x split chunks_per_split smem (cols, coord), stream
+        for name, n_ptr, n_plan in (("dcn_shift_bwd_cols", 4, 5),
+                                    ("dcn_shift_bwd_data", 4, 0),
+                                    ("dcn_shift_bwd_coord", 7, 5)):
             fn = getattr(lib, name)
-            fn.argtypes = [p] * n_ptr + [i] * 6 + [f, i, p]
+            fn.argtypes = [p] * n_ptr + [i] * 6 + [f, i] + [i] * n_plan + [p]
             fn.restype = i
         lib.dcn_shift_bwd_error_string.argtypes = [i]
         lib.dcn_shift_bwd_error_string.restype = ctypes.c_char_p
@@ -249,6 +317,20 @@ def _run(name, *args):
         raise RuntimeError(f"{name} failed: {msg} ({rc})")
 
 
+def _rows16(C: int, *tensors) -> bool:
+    """Every row of C channels starts 16-byte aligned (the cols and coord
+    kernels' 16-byte copies and stores)."""
+    return (C * tensors[0].element_size()) % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _pad_channels(t, rows: int, C: int, C2: int):
+    """A fresh [rows, C2] copy of t viewed as [rows, C], zero past C."""
+    out = t.new_zeros((rows, C2))
+    out[:, :C] = t.reshape(rows, C)
+    return out
+
+
 def dcn_shift_bwd_cols_cuda(x, offset, mask, *, K: int = 3,
                             clamp: float = 1.0):
     """The forward's triangle-weighted columns [B*H*W, K*K*C] in x's dtype
@@ -261,12 +343,21 @@ def dcn_shift_bwd_cols_cuda(x, offset, mask, *, K: int = 3,
     if dev.type != "cuda":
         raise ValueError(f"dcn_shift_bwd_cols_cuda takes CUDA tensors, got "
                          f"{dev}")
-    col = torch.empty((B * H * W, KK * C), dtype=x.dtype, device=dev)
+    C2 = C + -C % (16 // x.element_size())
+    if not _rows16(C, x):
+        # the kernel takes 16-byte rows: pad C with zero channels, whose
+        # columns are cut off again
+        x = _pad_channels(x, B * H * W, C, C2).view(B, H, W, C2)
+    p = bwd_plan("cols", B, H, W, C2, R, x.dtype, num_sms(dev), K=K)
+    col = torch.empty((B * H * W, KK * C2), dtype=x.dtype, device=dev)
     with torch.cuda.device(dev):
         _run("dcn_shift_bwd_cols", x.data_ptr(), offset.data_ptr(),
              mask.data_ptr(), col.data_ptr(), _DTYPE_CODE[x.dtype], B, H, W,
-             C, K, float(clamp), R, torch.cuda.current_stream(dev).cuda_stream)
+             C2, K, float(clamp), R, *p.tiles, p.split, p.chunks_per_split,
+             p.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
     bwd_launches["cols"] += 1
+    if C2 != C:
+        col = col.view(B * H * W, KK, C2)[..., :C].reshape(B * H * W, KK * C)
     return col
 
 
@@ -295,7 +386,7 @@ def dcn_shift_bwd_coord_cuda(x, gk, offset, mask, *, K: int = 3,
                              clamp: float = 1.0):
     """(doffset [B,H,W,K*K,2], dmask [B,H,W,K*K]) in float32 from x and the
     per-tap cotangent gk [B*H*W, K*K*C], with the reference package's
-    subgradient conventions at the triangle and clip kinks."""
+    subgradient conventions at the triangle and clip kinks. K = 3."""
     B, H, W, C, R = _bwd_problem(x.shape, K, clamp, x.dtype)
     KK, dev = K * K, x.device
     _check("x", x, (B, H, W, C), x.dtype, dev)
@@ -305,13 +396,28 @@ def dcn_shift_bwd_coord_cuda(x, gk, offset, mask, *, K: int = 3,
     if dev.type != "cuda":
         raise ValueError(f"dcn_shift_bwd_coord_cuda takes CUDA tensors, got "
                          f"{dev}")
+    if not _rows16(C, x, gk):
+        # the TMA takes 16-byte aligned rows: pad C with zero channels, which
+        # add nothing to the dot products
+        C2 = C + -C % (16 // x.element_size())
+        x = _pad_channels(x, B * H * W, C, C2).view(B, H, W, C2)
+        gk = _pad_channels(gk, B * H * W * KK, C, C2).view(B * H * W,
+                                                           KK * C2)
+        C = C2
+    p = bwd_plan("coord", B, H, W, C, R, x.dtype, num_sms(dev), K=K)
     doffset = torch.empty((B, H, W, KK, 2), dtype=torch.float32, device=dev)
     dmask = torch.empty((B, H, W, KK), dtype=torch.float32, device=dev)
+    partial = None
+    if p.split > 1:
+        partial = torch.empty((p.split, B * H * W * KK, (2 * R + 1) ** 2),
+                              dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         _run("dcn_shift_bwd_coord", x.data_ptr(), gk.data_ptr(),
              offset.data_ptr(), mask.data_ptr(), doffset.data_ptr(),
-             dmask.data_ptr(), _DTYPE_CODE[x.dtype], B, H, W, C, K,
-             float(clamp), R, torch.cuda.current_stream(dev).cuda_stream)
+             dmask.data_ptr(), None if partial is None else partial.data_ptr(),
+             _DTYPE_CODE[x.dtype], B, H, W, C, K, float(clamp), R, *p.tiles,
+             p.split, p.chunks_per_split, p.smem_bytes,
+             torch.cuda.current_stream(dev).cuda_stream)
     bwd_launches["coord"] += 1
     return doffset, dmask
 

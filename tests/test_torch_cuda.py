@@ -18,6 +18,11 @@ from m3dssd_tpu_torch.models.necks import DCN
 from m3dssd_tpu_torch.ops import dcn as tdcn
 from m3dssd_tpu_torch.ops import dcn_cuda
 
+# one torch thread per test process: the suite runs several workers at
+# once, and torch's default of one thread per core made them
+# oversubscribe the machine and slow every worker down
+torch.set_num_threads(1)
+
 
 @pytest.fixture
 def cuda_device():
@@ -177,6 +182,53 @@ def test_dcn_shift_backward_kernels_match_plain(cuda_device, dtype, shape,
                                                       clamp=clamp),
                     tdcn.shift_coord_reference(x, gk, off, m, clamp=clamp)):
         assert _rel(a, b) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,clamp,edge", [
+    ((2, 13, 21, 72, 16), 1.0, False),
+    ((1, 9, 17, 40, 8), 1.0, True),
+    ((1, 9, 17, 40, 8), 1.5, True),
+    ((2, 5, 11, 20, 8), 1.0, False),
+    ((2, 5, 11, 20, 8), 1.5, False)])
+def test_dcn_shift_bwd_tiled_kernels_match_plain(cuda_device, dtype, shape,
+                                                 clamp, edge):
+    """The cols and coord kernels (8x16 pixel tiles over a shared-memory x
+    slab, see `dcn_cuda.bwd_plan`) against their plain versions: 13x21 with
+    two images leaves tiles partial in H and W and C = 72 a partial
+    channel chunk; `edge` puts every offset exactly on +-clamp (an offset at
+    +R takes the corners R-1, R and must stay in the slab); C = 20 (4 mod 8)
+    is no whole number of 16-byte bf16 vectors, so the wrappers pad C with
+    zero channels. Tolerances as in the test above; each kernel gives the same bits
+    on a second call (no atomics)."""
+    B, H, W, C, Co = shape
+    x, off, m, w, _ = _case(8, *shape, dtype, cuda_device, clamp=clamp)
+    rng = np.random.default_rng(9)
+    if edge:
+        sign = torch.tensor(rng.integers(0, 2, off.shape) * 2 - 1,
+                            dtype=torch.float32, device=cuda_device)
+        off = (sign * clamp).contiguous()
+    gk = torch.tensor(rng.normal(size=(B * H * W, 9 * C)), dtype=dtype,
+                      device=cuda_device)
+    tol = 1e-4 if dtype == torch.float32 else 5e-2
+    before = dict(dcn_cuda.bwd_launches)
+    col = dcn_cuda.dcn_shift_bwd_cols_cuda(x, off, m, clamp=clamp)
+    coord = dcn_cuda.dcn_shift_bwd_coord_cuda(x, gk, off, m, clamp=clamp)
+    torch.cuda.synchronize()
+    assert dcn_cuda.bwd_launches["cols"] == before["cols"] + 1
+    assert dcn_cuda.bwd_launches["coord"] == before["coord"] + 1
+    assert _rel(col, tdcn.shift_columns_reference(x, off, m,
+                                                  clamp=clamp)) <= tol
+    for a, b in zip(coord, tdcn.shift_coord_reference(x, gk, off, m,
+                                                      clamp=clamp)):
+        assert torch.isfinite(a).all()
+        assert _rel(a, b) <= tol
+    assert torch.equal(dcn_cuda.dcn_shift_bwd_cols_cuda(x, off, m,
+                                                        clamp=clamp), col)
+    for a, b in zip(dcn_cuda.dcn_shift_bwd_coord_cuda(x, gk, off, m,
+                                                      clamp=clamp), coord):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

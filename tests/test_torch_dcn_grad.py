@@ -25,6 +25,11 @@ from m3dssd_tpu_torch.ops.dcn import (DCNShiftFunction, dcn_v2_shift,
                                       shift_coord_reference,
                                       shift_dx_reference)
 
+# one torch thread per test process: the suite runs several workers at
+# once, and torch's default of one thread per core made them
+# oversubscribe the machine and slow every worker down
+torch.set_num_threads(1)
+
 # float32 on both sides: the same sums in another order
 TOL32 = 2e-6
 # the port in float64 against JAX in float32 on inputs float32 can hold:

@@ -19,6 +19,11 @@ from m3dssd_tpu.ops import dcn as jdcn
 from m3dssd_tpu_torch.ops import dcn as tdcn
 from m3dssd_tpu_torch.ops import dcn_cuda
 
+# one torch thread per test process: the suite runs several workers at
+# once, and torch's default of one thread per core made them
+# oversubscribe the machine and slow every worker down
+torch.set_num_threads(1)
+
 # float32 on both sides, unit-scale sums of a few hundred terms
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -164,3 +169,78 @@ def test_launch_plan_splits_the_smallest_neck_layer():
 def test_launch_plan_refuses_a_slab_beyond_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
         dcn_cuda.plan(1, 64, 64, 64, 64, 2, H100_SMS, K=41)
+
+
+# (B, H, W, C) of the backward's calls: the neck at 384x1280 bs=8 and at
+# 512x1760 bs=8, the odd and ragged cases of chip_smoke.py, and the card
+# tests' partial tiles (13x21), C = 20 (4 mod 8) and a 3x2 image
+BWD_SHAPES = [(8, 12, 40, 1024), (8, 24, 80, 512), (8, 48, 160, 256),
+              (8, 16, 55, 1024), (8, 32, 110, 512), (8, 64, 220, 256),
+              (2, 5, 11, 40), (1, 13, 41, 64), (1, 13, 41, 200),
+              (2, 13, 21, 72), (1, 9, 17, 40), (2, 5, 11, 20), (1, 3, 2, 24)]
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+@pytest.mark.parametrize("R", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["cols", "coord"])
+def test_backward_plan_covers_the_problem_once(kernel, dtype, R, shape):
+    """`bwd_plan`: the blocks' tiles (decoded as the kernels decode
+    blockIdx.x) cover every pixel of every image exactly once and none
+    reaches into another image; the channel chunks are split over
+    blockIdx.y so that each chunk is walked by exactly one split, none
+    empty, only where the tiles fill fewer than the card's block slots,
+    and then into no more blocks than one wave of slots holds; the shared
+    memory fits one block (two for cols) on an SM."""
+    B, H, W, C = shape
+    p = dcn_cuda.bwd_plan(kernel, B, H, W, C, R, dtype, H100_SMS)
+    th, tw = p.tile
+    ty, tx = p.tiles
+    assert p.grid == (B * ty * tx, p.split)
+    cover = np.zeros((B, H, W), np.int64)
+    for block in range(p.grid[0]):
+        b, i = divmod(block, ty * tx)
+        y0, x0 = (i // tx) * th, (i % tx) * tw
+        assert b < B and y0 < H and x0 < W
+        cover[b, y0:y0 + th, x0:x0 + tw] += 1
+    assert (cover == 1).all()
+    assert p.chunk * torch.finfo(dtype).bits // 8 == \
+        dcn_cuda.BWD_ROW_BYTES[kernel]
+    nchunks = -(-C // p.chunk)
+    splits = _tile_ranges(nchunks, p.chunks_per_split, p.split)
+    assert all(a < b for a, b in splits)
+    assert [c for a, b in splits for c in range(a, b)] == list(range(nchunks))
+    assert 1 <= p.split <= dcn_cuda.MAX_SPLIT
+    slots = dcn_cuda.BWD_BLOCKS_PER_SM[kernel] * H100_SMS
+    if p.grid[0] >= slots:
+        assert p.split == 1
+    assert p.grid[0] * p.split <= max(slots, p.grid[0])
+    assert p.smem_bytes <= dcn_cuda.SMEM_LIMIT
+    assert dcn_cuda.BWD_BLOCKS_PER_SM[kernel] * (p.smem_bytes + 1024) \
+        <= 233472
+
+
+def test_backward_plan_splits_the_first_neck_layer():
+    """8x12x40 at C = 1024 gives 48 tiles for 132 SMs: coord (one block per
+    SM) splits its 32 chunks 2 ways, cols (two per SM) its 16 chunks 4
+    ways; the 48x160 layer's 480 tiles fill the card unsplit."""
+    coord = dcn_cuda.bwd_plan("coord", 8, 12, 40, 1024, 1, torch.bfloat16,
+                              H100_SMS)
+    cols = dcn_cuda.bwd_plan("cols", 8, 12, 40, 1024, 1, torch.bfloat16,
+                             H100_SMS)
+    assert coord.grid == (48, 2) and coord.chunks_per_split == 16
+    assert cols.grid == (48, 4) and cols.chunks_per_split == 4
+    for kernel in ("cols", "coord"):
+        assert dcn_cuda.bwd_plan(kernel, 8, 48, 160, 256, 1, torch.bfloat16,
+                                 H100_SMS).split == 1
+
+
+def test_backward_plan_refuses_what_the_kernels_cannot_take():
+    with pytest.raises(ValueError, match="shared memory"):
+        dcn_cuda.bwd_plan("cols", 1, 64, 64, 64, 2, torch.bfloat16,
+                          H100_SMS, K=41)
+    with pytest.raises(ValueError, match="K = 3"):
+        dcn_cuda.bwd_plan("coord", 1, 8, 16, 64, 1, torch.bfloat16,
+                          H100_SMS, K=5)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        dcn_cuda.bwd_plan("cols", 1, 8, 16, 64, 1, torch.float16, H100_SMS)

@@ -38,6 +38,11 @@ from m3dssd_tpu_torch.models import build
 from m3dssd_tpu_torch.utils.weights import from_flax_variables
 from test_torch_model import _images, _perturb
 
+# one torch thread per test process: the suite runs several workers at
+# once, and torch's default of one thread per core made them
+# oversubscribe the machine and slow every worker down
+torch.set_num_threads(1)
+
 CROP = (64, 224)
 B = 2
 DEEP = dict(rtol=1e-3, atol=1e-3)

@@ -37,6 +37,11 @@ from m3dssd_tpu_torch.inference import hill_climb
 from m3dssd_tpu_torch.inference import test_driver as driver
 from m3dssd_tpu_torch.ops import nms
 
+# one torch thread per test process: the suite runs several workers at
+# once, and torch's default of one thread per core made them
+# oversubscribe the machine and slow every worker down
+torch.set_num_threads(1)
+
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                       "golden_ap")
 # the JAX package's __init__ files bind these names to functions

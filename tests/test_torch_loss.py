@@ -22,6 +22,11 @@ from m3dssd_tpu_torch.losses.rpn_loss import (RPNLossConfig,
                                               rank_select_pools,
                                               rpn_3d_loss)
 
+# one torch thread per test process: the suite runs several workers at
+# once, and torch's default of one thread per core made them
+# oversubscribe the machine and slow every worker down
+torch.set_num_threads(1)
+
 CROP = (64, 128)
 B = 2
 # float32 sums over a few thousand anchors in another order

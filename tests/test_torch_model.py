@@ -37,6 +37,11 @@ from m3dssd_tpu_torch.models.attention import ANAB
 from m3dssd_tpu_torch.models.necks import DCN, DLASeg
 from m3dssd_tpu_torch.utils.weights import from_flax_variables
 
+# one torch thread per test process: the suite runs several workers at
+# once, and torch's default of one thread per core made them
+# oversubscribe the machine and slow every worker down
+torch.set_num_threads(1)
+
 CROP = (64, 128)
 B = 2
 # float32 through a deep chain of convolutions summed in another order

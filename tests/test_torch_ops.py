@@ -30,6 +30,11 @@ from m3dssd_tpu_torch.ops.boxes import bbox_transform_inv_t, decode_bbox_3d_t
 from m3dssd_tpu_torch.ops.compact import first_m_true
 from m3dssd_tpu_torch.ops.nms import nms_select_t
 
+# one torch thread per test process: the suite runs several workers at
+# once, and torch's default of one thread per core made them
+# oversubscribe the machine and slow every worker down
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # float32 on both sides; the products are summed in another order, so the

@@ -53,6 +53,11 @@ from m3dssd_tpu_torch.utils.weights import (_param_entries,
                                             from_flax_variables,
                                             sgd_state_from_optax)
 
+# one torch thread per test process: the suite runs several workers at
+# once, and torch's default of one thread per core made them
+# oversubscribe the machine and slow every worker down
+torch.set_num_threads(1)
+
 CROP = (64, 128)
 STEP_TOL = 1e-4          # loss, stats, BN statistics (relative)
 UPDATE_TOL = 3e-2        # parameter updates, relative to the largest one
@@ -194,6 +199,44 @@ def test_train_mode_batchnorm_matches_flax():
         if not check_jax:
             assert np.abs(np.asarray(gx) - grads[torch.float64]).max() \
                 > 1e-2 * scale
+
+
+def test_train_mode_batchnorm_on_the_cpu_computes_in_float64():
+    """On CPU tensors train mode takes its statistics and normalisation in
+    float64. torch's CPU kernel for channels_last inputs (the model's
+    layout) sums each channel in float32, in one chain per thread, so its
+    results changed with the thread count and missed these limits. Now
+    output, gradients and running statistics are float64's rounded once,
+    the same bits at 1 and 4 threads."""
+    rng = np.random.default_rng(4)
+    x = (rng.normal(size=(2, 16, 64, 128)) * 0.5 + 3.0).astype(np.float32)
+    ct = rng.normal(size=x.shape).astype(np.float32)
+    sc = rng.uniform(0.5, 1.5, size=16).astype(np.float32)
+    bi = rng.normal(size=16).astype(np.float32)
+    runs = {}
+    threads = torch.get_num_threads()
+    try:
+        for dtype, n in ((torch.float64, 1), (torch.float32, 1),
+                         (torch.float32, 4)):
+            torch.set_num_threads(n)
+            tb = batch_norm(16).to(dtype).train()
+            with torch.no_grad():
+                tb.weight.copy_(torch.tensor(sc))
+                tb.bias.copy_(torch.tensor(bi))
+            xt = torch.tensor(x, dtype=dtype).contiguous(
+                memory_format=torch.channels_last).requires_grad_()
+            y = tb(xt)
+            (y * torch.tensor(ct, dtype=dtype)).sum().backward()
+            runs[dtype, n] = (y.detach(), xt.grad, tb.weight.grad,
+                              tb.bias.grad, tb.running_mean, tb.running_var)
+    finally:
+        torch.set_num_threads(threads)
+    one, four = runs[torch.float32, 1], runs[torch.float32, 4]
+    assert all(torch.equal(a, b) for a, b in zip(one, four))
+    assert one[0].dtype == torch.float32
+    for got, want in zip(one, runs[torch.float64, 1]):
+        err = float((got.double() - want).abs().max() / want.abs().max())
+        assert err < 2e-7, err
 
 
 # ---------------------------------------------------------------------------

@@ -32,6 +32,11 @@ from m3dssd_tpu_torch.data.loader import TrainLoader
 from m3dssd_tpu_torch.data.synthetic import SyntheticTrainSet
 from m3dssd_tpu_torch.targets import build_targets
 
+# one torch thread per test process: the suite runs several workers at
+# once, and torch's default of one thread per core made them
+# oversubscribe the machine and slow every worker down
+torch.set_num_threads(1)
+
 CROP = [64, 224]
 IM = dict(imW=224, imH=64, min_h_px=6)
 NUM, SEED = 8, 3
