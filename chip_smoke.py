@@ -742,10 +742,13 @@ TIE_SHARE = 0.3
 BWD_KERNELS = ("cols", "data", "coord")
 # the limit each kernel's output is held to against its plain version
 BWD_KERNEL_TOL = {"cols": "dweight", "data": "dx", "coord": "doffset"}
-# (kind, (B, H, W, Cin, Cout), clamp) of the cols and coord kernels' tiling
-# (ops/dcn_cuda.py:bwd_plan): tiles partial in H and W over two images
-# with a partial channel chunk; every offset exactly on +-clamp ("edge");
-# C = 20, no whole number of 16-byte bf16 vectors (the wrappers pad C)
+# (kind, (B, H, W, Cin, Cout), clamp) of the tiling of the cols, data and
+# coord kernels (ops/dcn_cuda.py:bwd_plan): tiles partial in H and W over
+# two images with a partial channel chunk (data's per-tap gk boxes reach
+# into neither the next image nor past the image's edge); every offset
+# exactly on +-clamp ("edge": cols' corners R-1, R and data's knots +-R
+# stay in their slab or box); C = 20, no whole number of 16-byte bf16
+# vectors (the wrappers pad C)
 BWD_TILING_CASES = [("tiles", (2, 13, 21, 72, 16), 1.0),
                     ("edge", (1, 9, 17, 40, 8), 1.0),
                     ("edge", (1, 9, 17, 40, 8), 1.5),

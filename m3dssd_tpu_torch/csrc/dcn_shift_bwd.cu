@@ -30,7 +30,7 @@
 // Sums are taken in float32 whatever the feature type; dx and col are
 // written in x's type, doffset and dmask in float32.
 //
-// What bounds it on an H100. cols writes, and coord reads, a
+// What bounds it on an H100. cols writes, and data and coord read, a
 // [B*H*W, K^2*C] tensor, K^2 = 9 times the bytes of x; their operations
 // (4 corners per column element, (2R+1)^2 dot products per (p, k, c)) come
 // to less than half of that time on the float32 CUDA cores at R = 1. So
@@ -79,10 +79,37 @@
 // The launch geometry (tiles, chunk split, shared memory) is planned in
 // Python (ops/dcn_cuda.py:bwd_plan) and checked here.
 //
-// data: one block of NT threads per pixel. The block first computes the
-// K^2 (2R+1)^2 triangle weights of its pixel and their source rows into
-// shared memory, then each thread walks its channels (thread t owns c = t,
-// t + NT, ...), so the reads and writes of a row are coalesced.
+// Design of data (the transpose of cols: it reads the 9C-wide gk and
+// writes the C-wide dx). One block of 256 threads owns an 8 x 16 tile of
+// input pixels q of one image and walks the channels in 128-byte chunks
+// (64 bf16 or 32 float32 channels), and within a chunk the K^2 taps. For
+// tap k the rows q needs are p = q - s(k, knot): the tile shifted by
+// (K/2 - ky, K/2 - kx) and widened by R, a (TH+2R) x (TW+2R) box of gk
+// seen as the 5-D tensor {C, K^2, W, H, B}, which the TMA copies (thread 0
+// issues, an mbarrier counts the bytes; 128-byte swizzle) and zero-fills
+// outside the image, never from the neighbouring image. Per-tap boxes read
+// 1.41 x the tile's gk rows through L2 at R = 1; one box over the union
+// window would read 1.875 x. The boxes go through a ring of DATA_STAGES
+// stages (a full and an empty mbarrier each): thread 0 refills a stage as
+// soon as every warp has released it. Nine boxes of a chunk would take
+// 207,360 bytes at R = 1; the ring of single taps keeps a block at 74,048
+// bytes, two blocks per SM.
+//   Per tile, the block first stores for every (tap, box pixel) its
+// clipped offset and mask, read from the window of the tile plus a halo
+// of K/2 + R with coalesced loads (zero mask outside the image). In any
+// tap's box, knot (dy, dx) of the tile's pixel (qy, qx) is box pixel
+// (qy + R - dy, qx + R - dx), so a lane computes its rows' addresses once.
+// Two lanes own a pixel, four 16-byte vectors of the chunk each (one lane
+// per pixel and all eight vectors measured slower: half the warps; 64-byte
+// chunks too: twice the boxes). Per knot a lane reads p's entry, forms
+// m tri(oy - dy) tri(ox - dx) and, only where that is non-zero (one knot
+// of nine when every offset is 0), reads its 4 vectors by 16-byte loads,
+// widens bf16 by one shift or mask per value and sums in float32. The
+// swizzle puts the rows of 8 neighbouring pixels in 8 distinct bank
+// groups. After the K^2 taps the lane writes its 64 bytes of dx, rounded
+// once. Taps and knots are summed in a fixed order, with no atomics; the
+// first neck layer's chunks are split over blockIdx.y as in cols
+// (disjoint channels, no reduce).
 //
 // Interface: plain C, loaded with ctypes (ops/dcn_cuda.py). Layouts: x
 // [B,H,W,C], offset [B,H,W,K*K,2] float32 (dy, dx), mask [B,H,W,K*K]
@@ -102,10 +129,9 @@ namespace {
 
 using namespace dcn_common;
 
-constexpr int NT = 128;          // threads per block of data
 constexpr int MAX_SMEM = 232448;
 constexpr int MAX_SPLIT = 64;
-constexpr int TH = 8, TW = 16;   // pixel tile of cols and coord
+constexpr int TH = 8, TW = 16;   // pixel tile of every kernel here
 constexpr int TP = TH * TW;
 constexpr int COLS_NT = 256;
 constexpr int COLS_RV = 8;       // 16-byte vectors per slab row of cols
@@ -115,21 +141,12 @@ constexpr int COORD_LANES = TP / COORD_N;  // lanes per tap
 constexpr int COORD_NT = COORD_K * COORD_K * COORD_LANES;  // 576
 constexpr int COORD_ROW = 64;    // bytes of a pixel's (or a gk row's) chunk
 constexpr int RED_NT = 256;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+constexpr int DATA_ROW = 128;    // bytes of a gk row's chunk in data (the
+                                 // 128-byte swizzle's span)
+constexpr int DATA_LPP = 2;      // data's lanes per pixel of the tile
+constexpr int DATA_NT = TP * DATA_LPP;
+constexpr int DATA_RV = DATA_ROW / 16 / DATA_LPP;  // 16-byte vectors a lane
+constexpr int DATA_STAGES = 2;   // tap boxes in data's ring
 
 __device__ __forceinline__ float clip(float o, float clamp) {
   return fminf(fmaxf(o, -clamp), clamp);
@@ -155,19 +172,6 @@ __device__ __forceinline__ float dclip(float o, float clamp) {
   return a < clamp ? 1.f : (a == clamp ? 0.5f : 0.f);
 }
 
-struct Pixel {
-  int b, y, x;
-};
-
-__device__ __forceinline__ Pixel pixel_of(long long p, int H, int W) {
-  Pixel q;
-  q.x = (int)(p % W);
-  const long long bh = p / W;
-  q.y = (int)(bh % H);
-  q.b = (int)(bh / H);
-  return q;
-}
-
 // 16 bytes of shared memory as float32 values
 __device__ __forceinline__ void load_vec(const uint8_t* p, float (&f)[4]) {
   const float4 v = *reinterpret_cast<const float4*>(p);
@@ -175,6 +179,30 @@ __device__ __forceinline__ void load_vec(const uint8_t* p, float (&f)[4]) {
 }
 __device__ __forceinline__ void load_vec(const uint8_t* p, float (&f)[8]) {
   unpack8(*reinterpret_cast<const uint4*>(p), f);
+}
+
+// the same from a shared-memory address: one 16-byte load, and each bf16
+// widened by one shift or mask
+__device__ __forceinline__ uint4 lds128(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+__device__ __forceinline__ void lds_vec(uint32_t addr, float (&f)[4]) {
+  const uint4 v = lds128(addr);
+  f[0] = __uint_as_float(v.x), f[1] = __uint_as_float(v.y);
+  f[2] = __uint_as_float(v.z), f[3] = __uint_as_float(v.w);
+}
+__device__ __forceinline__ void lds_vec(uint32_t addr, float (&f)[8]) {
+  const uint4 v = lds128(addr);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
 
 // 16/sizeof(T) float32 values rounded to T, one 16-byte store
@@ -215,6 +243,20 @@ __host__ __device__ constexpr int coord_stage_bytes(int R) {
 // two stages and 1024 bytes of alignment slack
 __host__ __device__ constexpr int coord_smem_bytes(int R) {
   return 1024 + 2 * coord_stage_bytes(R);
+}
+// data's gk box of one tap: the tile widened by R
+__host__ __device__ constexpr int data_box_pixels(int R) {
+  return (TH + 2 * R) * (TW + 2 * R);
+}
+// one stage of data's ring: a box at a 1024-byte boundary (the swizzle)
+__host__ __device__ constexpr int data_stage_bytes(int R) {
+  return (data_box_pixels(R) * DATA_ROW + 1023) & ~1023;
+}
+// 1024 bytes of alignment slack, the ring, then per (tap, box pixel) a
+// float4 (clipped oy, ox, mask, 0)
+__host__ __device__ constexpr int data_smem_bytes(int K, int R) {
+  return 1024 + DATA_STAGES * data_stage_bytes(R) +
+         K * K * data_box_pixels(R) * 16;
 }
 
 struct Tile {
@@ -351,52 +393,6 @@ dcn_shift_bwd_cols_kernel(const __grid_constant__ ColsArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// data (one block per input pixel)
-// ---------------------------------------------------------------------------
-
-// dx[q, c] = sum over taps k and knots of (m tri tri)(p, k) gk[p, k, c],
-// p = q - s(k, knot) inside the image
-template <typename T, int R>
-__global__ void __launch_bounds__(NT)
-dcn_shift_bwd_data_kernel(const T* __restrict__ gk,
-                          const float* __restrict__ offset,
-                          const float* __restrict__ mask, T* __restrict__ dx,
-                          int H, int W, int C, int K, float clamp) {
-  constexpr int S = 2 * R + 1;
-  extern __shared__ float smem[];
-  const int KK = K * K, NTERM = KK * S * S, pad = K / 2;
-  float* wts = smem;
-  long long* src = reinterpret_cast<long long*>(smem + 2 * ((NTERM + 1) / 2));
-  const long long qi = blockIdx.x;
-  const Pixel q = pixel_of(qi, H, W);
-  for (int t = threadIdx.x; t < NTERM; t += NT) {
-    const int k = t / (S * S), iy = (t / S) % S, ix = t % S;
-    const int py = q.y - (k / K - pad + iy - R);
-    const int px = q.x - (k % K - pad + ix - R);
-    float wt = 0.f;
-    long long row = -1;
-    if (py >= 0 && py < H && px >= 0 && px < W) {
-      const long long pp = ((long long)q.b * H + py) * W + px;
-      const float oy = clip(offset[(pp * KK + k) * 2], clamp);
-      const float ox = clip(offset[(pp * KK + k) * 2 + 1], clamp);
-      wt = mask[pp * KK + k] * tri(oy, iy - R) * tri(ox, ix - R);
-      if (wt != 0.f) row = pp * KK + k;
-    }
-    wts[t] = wt;
-    src[t] = row;
-  }
-  __syncthreads();
-  for (int c = threadIdx.x; c < C; c += NT) {
-    float acc = 0.f;
-    for (int t = 0; t < NTERM; ++t) {
-      const long long row = src[t];
-      if (row >= 0) acc += wts[t] * to_f(gk[row * C + c]);
-    }
-    dx[qi * C + c] = from_f<T>(acc);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // coord
 // ---------------------------------------------------------------------------
 
@@ -482,11 +478,34 @@ __device__ __forceinline__ void tma_load4(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// the 5-D form of tma_load4
+__device__ __forceinline__ void tma_load5(void* dst, const CUtensorMap* map,
+                                          uint64_t* bar, int c0, int c1,
+                                          int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3), "r"(c4)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
 // byte offset of 16-byte vector 0 of 64-byte row r of a box the TMA wrote
 // with its 64-byte swizzle (address bits 4-5 XOR bits 7-8); vector v is at
 // the offset ^ (v << 4)
 __device__ __forceinline__ int swz64_offset(int r) {
   return r * COORD_ROW + (((r >> 1) & 3) << 4);
+}
+// the same for 128-byte rows and the 128-byte swizzle (address bits 4-6
+// XOR bits 7-9)
+__device__ __forceinline__ int swz128_offset(int r) {
+  return r * 128 + ((r & 7) << 4);
 }
 
 // thread 0: chunk j's x slab and gk box into stage st, counted on bar (the
@@ -651,6 +670,178 @@ dcn_shift_bwd_coord_reduce_kernel(const __grid_constant__ CoordArgs a,
   }
 }
 
+// ---------------------------------------------------------------------------
+// data
+// ---------------------------------------------------------------------------
+
+struct DataArgs {
+  const float* offset;
+  const float* mask;
+  void* dx;
+  int B, H, W, C, K;
+  float clamp;
+  int tiles_y, tiles_x, chunks_per_split;
+};
+
+// thread 0: the gk box of chunk j, tap k into stage st, counted on bar
+// (the fence orders the block's earlier reads of st before the TMA's
+// writes). The box starts at the tile's corner shifted by
+// (K/2 - ky - R, K/2 - kx - R).
+template <int R, int CH, int BYTES>
+__device__ __forceinline__ void data_issue(uint8_t* st, uint64_t* bar,
+                                           const CUtensorMap* gm,
+                                           const Tile& t, int K, int j,
+                                           int k) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  mbar_expect_tx(bar, BYTES);
+  const int pad = K / 2;
+  tma_load5(st, gm, bar, j * CH, k, t.x0 + pad - k % K - R,
+            t.y0 + pad - k / K - R, t.b);
+}
+
+// dx[q, c] = sum over taps k and knots (dy, dx) of
+// (m tri(oy - dy) tri(ox - dx))(p, k) gk[p, k, c], p = q - s(k, dy, dx)
+// inside the image. The block's items are (chunk, tap) pairs in order;
+// item i sits in stage i % DATA_STAGES.
+template <typename T, int R>
+__global__ void __launch_bounds__(DATA_NT, 2)
+dcn_shift_bwd_data_kernel(const __grid_constant__ DataArgs a,
+                          const __grid_constant__ CUtensorMap gk_map) {
+  constexpr int S = 2 * R + 1;
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int CH = DATA_ROW / sizeof(T);  // channels per chunk
+  constexpr int BW = TW + 2 * R, BOX = data_box_pixels(R);
+  constexpr int STAGE = data_stage_bytes(R);
+  constexpr int BYTES = BOX * DATA_ROW;  // what the TMA writes per item
+  extern __shared__ uint8_t data_smem[];
+  __shared__ __align__(8) uint64_t full[DATA_STAGES], empty[DATA_STAGES];
+  // 1024-byte aligned, as an offset from data_smem so that the compiler
+  // keeps shared-memory loads
+  uint8_t* ring = data_smem + ((1024 - (smem_u32(data_smem) & 1023)) & 1023);
+  float4* tab = reinterpret_cast<float4*>(ring + DATA_STAGES * STAGE);
+  const int tid = threadIdx.x;
+  const int K = a.K, KK = K * K, pad = K / 2, P = pad + R;
+  const Tile t = tile_of(blockIdx.x, a.tiles_y, a.tiles_x);
+  const int nchunks = (a.C + CH - 1) / CH;
+  const int j0 = blockIdx.y * a.chunks_per_split;
+  const int j1 = min(nchunks, j0 + a.chunks_per_split);
+  const int items = (j1 - j0) * KK;
+  const CUtensorMap* gm = &gk_map;
+  if (tid == 0) {
+    for (int st = 0; st < DATA_STAGES; ++st) {
+      mbar_init(&full[st], 1);
+      mbar_init(&empty[st], DATA_NT / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int i = 0; i < DATA_STAGES && i < items; ++i)
+      data_issue<R, CH, BYTES>(ring + i * STAGE, &full[i], gm, t, K,
+                               j0 + i / KK, i % KK);
+  }
+  // tab[k * BOX + box pixel] = (clipped oy, ox, mask) of the pixel p the
+  // box of tap k holds there, mask 0 outside the image. A thread takes a
+  // pixel of the window (tile plus a halo of P) and its K^2 taps, so its
+  // loads of offset and mask are contiguous and a warp's are coalesced;
+  // window pixel (wy, wx) lies at box pixel (wy - 2 pad + ky,
+  // wx - 2 pad + kx) of tap k, if inside that box.
+  const int WW = TW + 2 * P, WN = (TH + 2 * P) * WW;
+  for (int wp = tid; wp < WN; wp += DATA_NT) {
+    const int wy = wp / WW, wx = wp - wy * WW;
+    const int gy = t.y0 - P + wy, gx = t.x0 - P + wx;
+    const bool in = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
+    const long long p0 =
+        in ? (((long long)t.b * a.H + gy) * a.W + gx) * KK : 0;
+    for (int ky = 0; ky < K; ++ky) {
+      const int ry = wy - 2 * pad + ky;
+      if (ry < 0 || ry >= TH + 2 * R) continue;
+#pragma unroll 3
+      for (int kx = 0; kx < K; ++kx) {
+        const int rx = wx - 2 * pad + kx, k = ky * K + kx;
+        if (rx < 0 || rx >= BW) continue;
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (in) {
+          const float2 o = __ldg(
+              reinterpret_cast<const float2*>(a.offset + 2 * (p0 + k)));
+          v = make_float4(clip(o.x, a.clamp), clip(o.y, a.clamp),
+                          __ldg(a.mask + p0 + k), 0.f);
+        }
+        tab[k * BOX + ry * BW + rx] = v;
+      }
+    }
+  }
+  __syncthreads();  // the table and the barriers are ready
+
+  // the lane's pixel (qy, qx) and vectors v0 + v, v < DATA_RV, of the
+  // chunk: its knot (dy, dx) is box pixel rq + (R - dy) * BW + R - dx in
+  // every tap's box; the swizzled byte offsets of those rows' vector v0
+  // are computed once (vector v0 + v lies at the offset ^ (v << 4))
+  const int q = tid % TP, v0 = tid / TP * DATA_RV;
+  const int qy = q / TW, qx = q % TW;
+  const int rq = qy * BW + qx;
+  int row_off[S][S];
+#pragma unroll
+  for (int iy = 0; iy < S; ++iy)
+#pragma unroll
+    for (int ix = 0; ix < S; ++ix)
+      row_off[iy][ix] =
+          swz128_offset(rq + (S - 1 - iy) * BW + S - 1 - ix) ^ (v0 << 4);
+  const bool inside = t.y0 + qy < a.H && t.x0 + qx < a.W;
+  T* dxq = static_cast<T*>(a.dx) +
+           (((long long)t.b * a.H + t.y0 + qy) * a.W + t.x0 + qx) * a.C;
+  float acc[DATA_RV][VEC];
+#pragma unroll
+  for (int v = 0; v < DATA_RV; ++v)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[v][e] = 0.f;
+
+  int j = j0, k = 0;
+  for (int i = 0; i < items; ++i) {
+    const int st = i % DATA_STAGES;
+    // refill the stage of item i - 1 with item i - 1 + DATA_STAGES once
+    // every warp has released it
+    if (tid == 0 && i > 0 && i - 1 + DATA_STAGES < items) {
+      const int prev = (i - 1) % DATA_STAGES, next = i - 1 + DATA_STAGES;
+      mbar_wait(&empty[prev], ((i - 1) / DATA_STAGES) & 1);
+      data_issue<R, CH, BYTES>(ring + prev * STAGE, &full[prev], gm, t, K,
+                               j0 + next / KK, next % KK);
+    }
+    mbar_wait(&full[st], (i / DATA_STAGES) & 1);
+    const uint32_t box = smem_u32(ring) + st * STAGE;
+    const float4* tk = tab + k * BOX + rq;
+#pragma unroll
+    for (int iy = 0; iy < S; ++iy) {
+#pragma unroll
+      for (int ix = 0; ix < S; ++ix) {
+        const float4 o = tk[(S - 1 - iy) * BW + S - 1 - ix];
+        const float w = o.z * tri(o.x, iy - R) * tri(o.y, ix - R);
+        if (w != 0.f) {
+#pragma unroll
+          for (int v = 0; v < DATA_RV; ++v) {
+            float f[VEC];
+            lds_vec((box + row_off[iy][ix]) ^ (v << 4), f);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              acc[v][e] = fmaf(w, f[e], acc[v][e]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if ((tid & 31) == 0) mbar_arrive(&empty[st]);
+    if (++k == KK) {
+      // chunk j is summed over every tap: write the lane's part of dx
+#pragma unroll
+      for (int v = 0; v < DATA_RV; ++v) {
+        const int c = j * CH + (v0 + v) * VEC;
+        if (inside && c < a.C) store_vec(dxq + c, acc[v]);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[v][e] = 0.f;
+      }
+      k = 0;
+      ++j;
+    }
+  }
+}
+
 // cuTensorMapEncodeTiled, found through the runtime (no link to libcuda)
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -677,21 +868,27 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a 4-D tensor map of a contiguous tensor with the given dims (innermost
-// first, in elements) and box, 64-byte swizzle, zero outside the tensor
-bool tensor_map4(CUtensorMap* map, const void* base, int dtype,
-                 const cuuint64_t (&dims)[4], const cuuint32_t (&box)[4]) {
+// an N-D tensor map of a contiguous tensor with the given dims (innermost
+// first, in elements) and box, swizzled (64 bytes unless said), zero
+// outside the tensor
+template <int N>
+bool tensor_map(CUtensorMap* map, const void* base, int dtype,
+                const cuuint64_t (&dims)[N], const cuuint32_t (&box)[N],
+                CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_64B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t es = dtype == 0 ? 4 : 2;
-  const cuuint64_t strides[3] = {dims[0] * es, dims[0] * dims[1] * es,
-                                 dims[0] * dims[1] * dims[2] * es};
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  cuuint64_t strides[N - 1];
+  cuuint32_t ones[N];
+  cuuint64_t stride = dtype == 0 ? 4 : 2;
+  for (int i = 0; i < N; ++i) {
+    if (i < N - 1) strides[i] = stride *= dims[i];
+    ones[i] = 1;
+  }
   return fn(map,
             dtype == 0 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-            4, const_cast<void*>(base), dims, strides, box, ones,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+            N, const_cast<void*>(base), dims, strides, box, ones,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -722,9 +919,6 @@ bool valid_plan(int H, int W, int C, int chunk, int tiles_y, int tiles_x,
          smem >= need && smem <= MAX_SMEM;
 }
 
-// shared memory of data (float weight + 64-bit row) for K*K*(2R+1)^2 terms
-int terms(int K, int R) { return K * K * (2 * R + 1) * (2 * R + 1); }
-
 template <typename T, int R>
 cudaError_t launch_cols(const ColsArgs& a, int split, int smem,
                         cudaStream_t s) {
@@ -738,18 +932,14 @@ cudaError_t launch_cols(const ColsArgs& a, int split, int smem,
 }
 
 template <typename T, int R>
-cudaError_t launch_data(const void* gk, const void* offset, const void* mask,
-                        void* dx, int B, int H, int W, int C, int K,
-                        float clamp, cudaStream_t s) {
-  const int n = terms(K, R);
-  const int smem = (int)(2 * ((n + 1) / 2) * sizeof(float) +
-                         n * sizeof(long long));
-  if (smem > 48 * 1024) return cudaErrorInvalidValue;
-  dcn_shift_bwd_data_kernel<T, R><<<(unsigned)((long long)B * H * W), NT,
-                                    smem, s>>>(
-      static_cast<const T*>(gk), static_cast<const float*>(offset),
-      static_cast<const float*>(mask), static_cast<T*>(dx), H, W, C, K,
-      clamp);
+cudaError_t launch_data(const DataArgs& a, const CUtensorMap& gk_map,
+                        int split, int smem, cudaStream_t s) {
+  cudaError_t e = cudaFuncSetAttribute(
+      dcn_shift_bwd_data_kernel<T, R>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((unsigned)(a.B * a.tiles_y * a.tiles_x), (unsigned)split);
+  dcn_shift_bwd_data_kernel<T, R><<<grid, DATA_NT, smem, s>>>(a, gk_map);
   return cudaGetLastError();
 }
 
@@ -808,25 +998,46 @@ extern "C" int dcn_shift_bwd_cols(const void* x, const void* offset,
   return (int)e;
 }
 
-// dx [B,H,W,C] in gk's type from gk [B*H*W, K*K*C]
+// dx [B,H,W,C] in gk's type from gk [B*H*W, K*K*C], on the launch plan
+// of ops/dcn_cuda.py:bwd_plan("data", ...). gk and dx must start 16-byte
+// aligned and C * sizeof(T) be a multiple of 16 (the TMA's strides, the
+// 16-byte stores): the wrapper pads C where it is not.
 extern "C" int dcn_shift_bwd_data(const void* gk, const void* offset,
                                   const void* mask, void* dx, int dtype,
                                   int B, int H, int W, int C, int K,
-                                  float clamp, int R, void* stream) {
+                                  float clamp, int R, int tiles_y,
+                                  int tiles_x, int split,
+                                  int chunks_per_split, int smem,
+                                  void* stream) {
   if (!valid_problem(B, H, W, C, K, clamp, R) || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
+  const int chunk = DATA_ROW / (dtype == 0 ? 4 : 2);
+  if (!valid_plan(H, W, C, chunk, tiles_y, tiles_x, split, chunks_per_split,
+                  smem, data_smem_bytes(K, R)) ||
+      !rows16(C, dtype, gk) || !rows16(C, dtype, dx))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap gk_map;
+  const cuuint64_t dims[5] = {(cuuint64_t)C, (cuuint64_t)(K * K),
+                              (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint32_t box[5] = {(cuuint32_t)chunk, 1, (cuuint32_t)(TW + 2 * R),
+                             (cuuint32_t)(TH + 2 * R), 1};
+  if (!tensor_map(&gk_map, gk, dtype, dims, box, CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  DataArgs a;
+  a.offset = static_cast<const float*>(offset);
+  a.mask = static_cast<const float*>(mask);
+  a.dx = dx;
+  a.B = B, a.H = H, a.W = W, a.C = C, a.K = K, a.clamp = clamp;
+  a.tiles_y = tiles_y, a.tiles_x = tiles_x;
+  a.chunks_per_split = chunks_per_split;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0)
-    e = R == 1 ? launch_data<float, 1>(gk, offset, mask, dx, B, H, W, C, K,
-                                       clamp, s)
-               : launch_data<float, 2>(gk, offset, mask, dx, B, H, W, C, K,
-                                       clamp, s);
+    e = R == 1 ? launch_data<float, 1>(a, gk_map, split, smem, s)
+               : launch_data<float, 2>(a, gk_map, split, smem, s);
   else
-    e = R == 1 ? launch_data<__nv_bfloat16, 1>(gk, offset, mask, dx, B, H, W,
-                                               C, K, clamp, s)
-               : launch_data<__nv_bfloat16, 2>(gk, offset, mask, dx, B, H, W,
-                                               C, K, clamp, s);
+    e = R == 1 ? launch_data<__nv_bfloat16, 1>(a, gk_map, split, smem, s)
+               : launch_data<__nv_bfloat16, 2>(a, gk_map, split, smem, s);
   return (int)e;
 }
 
@@ -864,8 +1075,8 @@ extern "C" int dcn_shift_bwd_coord(const void* x, const void* gk,
   const cuuint32_t gk_box[4] = {(cuuint32_t)chunk,
                                 (cuuint32_t)(COORD_K * COORD_K),
                                 (cuuint32_t)TW, (cuuint32_t)TH};
-  if (!tensor_map4(&x_map, x, dtype, x_dims, x_box) ||
-      !tensor_map4(&gk_map, gk, dtype, gk_dims, gk_box))
+  if (!tensor_map(&x_map, x, dtype, x_dims, x_box) ||
+      !tensor_map(&gk_map, gk, dtype, gk_dims, gk_box))
     return (int)cudaErrorInvalidValue;
   CoordArgs a;
   a.offset = static_cast<const float*>(offset);

@@ -12,8 +12,8 @@ plain version is `ops/dcn.py:dcn_v2_shift_backward_reference`.
 `dcn_v2_shift_backward_cuda` runs the two matrix products on cuBLAS and the
 column build, the input gradient and the offset/mask gradients as the
 three kernels, each with its own wrapper and launch count in
-`bwd_launches`. The column build and the offset/mask gradients run on the
-launch plan of `bwd_plan` (pixel tiles over a shared-memory x slab).
+`bwd_launches`. All three run on the launch plan of `bwd_plan` (pixel
+tiles over rows staged in shared memory).
 
 The dtype selects the kernel: bfloat16 runs the tensor-core (wgmma) kernel
 with the launch plan of `plan`, float32 the CUDA-core kernel. `launches`
@@ -91,14 +91,17 @@ def plan(B: int, H: int, W: int, C: int, Cout: int, R: int, num_sms: int,
                 split=split, chunks_per_split=cps, smem_bytes=smem)
 
 
-# geometry of the backward's cols and coord kernels; must agree with
-# csrc/dcn_shift_bwd.cu
-BWD_ROW_BYTES = {"cols": 128, "coord": 64}   # bytes of a chunk's pixel row
-BWD_BLOCKS_PER_SM = {"cols": 2, "coord": 1}
+# geometry of the backward's kernels; must agree with csrc/dcn_shift_bwd.cu.
+# A chunk holds this many bytes of each staged row: of x's pixel rows
+# (cols, coord) and of gk's (pixel, tap) rows (coord, data).
+BWD_ROW_BYTES = {"cols": 128, "data": 128, "coord": 64}
+# blocks one SM holds at K = 3
+BWD_BLOCKS_PER_SM = {"cols": 2, "data": 2, "coord": 1}
+DATA_STAGES = 2             # tap boxes in the data kernel's ring
 
 
 class BwdPlan(NamedTuple):
-    """Launch geometry of the backward's cols or coord kernel."""
+    """Launch geometry of one of the backward's kernels."""
     tile: Tuple[int, int]        # (TILE_H, TILE_W) pixels per block
     tiles: Tuple[int, int]       # (tiles over H, tiles over W) per image
     grid: Tuple[int, int]        # (B * tiles, split)
@@ -111,17 +114,21 @@ class BwdPlan(NamedTuple):
 @functools.lru_cache(maxsize=256)
 def bwd_plan(kernel: str, B: int, H: int, W: int, C: int, R: int,
              dtype: torch.dtype, num_sms: int, K: int = 3) -> BwdPlan:
-    """Tiles, grid, chunk and shared memory of the backward's `cols` or
-    `coord` kernel.
+    """Tiles, grid, chunk and shared memory of the backward's `cols`,
+    `data` or `coord` kernel.
 
     Each block owns an 8 x 16 pixel tile of one image and walks the
-    channels in chunks of 128 bytes per pixel (cols) or 64 (coord); two
-    x slabs (the tile plus a halo of K/2 + R) are double-buffered in shared
-    memory, beside cols' per-(pixel, tap) corner table or coord's two
-    staged gk boxes. Where the tiles fill fewer than the card's block
-    slots (2 per SM for cols, 1 for coord), the chunks are split over
-    blockIdx.y so that the blocks reach the slots without a second wave
-    (coord's splits cost a reduce of their partial tables).
+    channels in chunks of 128 bytes per pixel row (cols, data) or 64
+    (coord). cols and coord double-buffer the chunk's x slab (the tile plus a halo
+    of K/2 + R) in shared memory, beside cols' per-(pixel, tap) corner
+    table or coord's two staged gk boxes. data stages, per tap, the box of
+    gk rows its tile of input pixels reads (the tile widened by R) in a
+    ring of DATA_STAGES stages, beside a per-(tap, box pixel) table of
+    offsets and mask. Where the tiles fill fewer than the card's block
+    slots (BWD_BLOCKS_PER_SM per SM), the chunks are split over blockIdx.y
+    so that the blocks reach the slots without a second wave (coord's
+    splits cost a reduce of their partial tables; cols' and data's write
+    disjoint channels).
     """
     if kernel not in BWD_ROW_BYTES:
         raise ValueError(f"unknown backward kernel {kernel!r}")
@@ -137,6 +144,10 @@ def bwd_plan(kernel: str, B: int, H: int, W: int, C: int, R: int,
     row = BWD_ROW_BYTES[kernel]
     if kernel == "cols":
         smem = 2 * slab_px * row + pairs * (16 + 8)
+    elif kernel == "data":  # 1 KB slack, the ring at 1 KB bounds, the table
+        box_px = (TILE_H + 2 * R) * (TILE_W + 2 * R)
+        smem = (1024 + DATA_STAGES * _cdiv(box_px * row, 1024) * 1024
+                + K * K * box_px * 16)
     else:   # 1 KB alignment slack, two stages of TMA boxes at 1 KB bounds
         smem = 1024 + 2 * (_cdiv(slab_px * row, 1024) * 1024 + pairs * row)
     if smem > SMEM_LIMIT:
@@ -182,12 +193,12 @@ def _bwd_library():
         lib = ctypes.CDLL(_build.build(["dcn_shift_bwd"])["dcn_shift_bwd"][0])
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         # pointers, dtype B H W C K, clamp R, then the plan's tiles_y
-        # tiles_x split chunks_per_split smem (cols, coord), stream
-        for name, n_ptr, n_plan in (("dcn_shift_bwd_cols", 4, 5),
-                                    ("dcn_shift_bwd_data", 4, 0),
-                                    ("dcn_shift_bwd_coord", 7, 5)):
+        # tiles_x split chunks_per_split smem, stream
+        for name, n_ptr in (("dcn_shift_bwd_cols", 4),
+                            ("dcn_shift_bwd_data", 4),
+                            ("dcn_shift_bwd_coord", 7)):
             fn = getattr(lib, name)
-            fn.argtypes = [p] * n_ptr + [i] * 6 + [f, i] + [i] * n_plan + [p]
+            fn.argtypes = [p] * n_ptr + [i] * 6 + [f, i] + [i] * 5 + [p]
             fn.restype = i
         lib.dcn_shift_bwd_error_string.argtypes = [i]
         lib.dcn_shift_bwd_error_string.restype = ctypes.c_char_p
@@ -318,7 +329,7 @@ def _run(name, *args):
 
 
 def _rows16(C: int, *tensors) -> bool:
-    """Every row of C channels starts 16-byte aligned (the cols and coord
+    """Every row of C channels starts 16-byte aligned (the backward
     kernels' 16-byte copies and stores)."""
     return (C * tensors[0].element_size()) % 16 == 0 and all(
         t.data_ptr() % 16 == 0 for t in tensors)
@@ -373,12 +384,22 @@ def dcn_shift_bwd_data_cuda(gk, offset, mask, x_shape, *, K: int = 3,
     if dev.type != "cuda":
         raise ValueError(f"dcn_shift_bwd_data_cuda takes CUDA tensors, got "
                          f"{dev}")
-    dx = torch.empty((B, H, W, C), dtype=gk.dtype, device=dev)
+    C2 = C + -C % (16 // gk.element_size())
+    if not _rows16(C, gk):
+        # the TMA takes 16-byte aligned rows: pad C with zero channels, whose
+        # dx is cut off again
+        gk = _pad_channels(gk, B * H * W * KK, C, C2).view(B * H * W,
+                                                           KK * C2)
+    p = bwd_plan("data", B, H, W, C2, R, gk.dtype, num_sms(dev), K=K)
+    dx = torch.empty((B, H, W, C2), dtype=gk.dtype, device=dev)
     with torch.cuda.device(dev):
         _run("dcn_shift_bwd_data", gk.data_ptr(), offset.data_ptr(),
              mask.data_ptr(), dx.data_ptr(), _DTYPE_CODE[gk.dtype], B, H, W,
-             C, K, float(clamp), R, torch.cuda.current_stream(dev).cuda_stream)
+             C2, K, float(clamp), R, *p.tiles, p.split, p.chunks_per_split,
+             p.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
     bwd_launches["data"] += 1
+    if C2 != C:
+        dx = dx[..., :C].contiguous()
     return dx
 
 

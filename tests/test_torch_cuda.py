@@ -194,14 +194,16 @@ def test_dcn_shift_backward_kernels_match_plain(cuda_device, dtype, shape,
     ((2, 5, 11, 20, 8), 1.5, False)])
 def test_dcn_shift_bwd_tiled_kernels_match_plain(cuda_device, dtype, shape,
                                                  clamp, edge):
-    """The cols and coord kernels (8x16 pixel tiles over a shared-memory x
-    slab, see `dcn_cuda.bwd_plan`) against their plain versions: 13x21 with
-    two images leaves tiles partial in H and W and C = 72 a partial
-    channel chunk; `edge` puts every offset exactly on +-clamp (an offset at
-    +R takes the corners R-1, R and must stay in the slab); C = 20 (4 mod 8)
-    is no whole number of 16-byte bf16 vectors, so the wrappers pad C with
-    zero channels. Tolerances as in the test above; each kernel gives the same bits
-    on a second call (no atomics)."""
+    """The three backward kernels (8x16 pixel tiles over rows staged in
+    shared memory, see `dcn_cuda.bwd_plan`) against their plain versions:
+    13x21 with two images leaves tiles partial in H and W and C = 72 a
+    partial channel chunk; `edge` puts every offset exactly on +-clamp (an
+    offset at +R takes the corners R-1, R and must stay in the slab; data
+    reads knot +-R of a box widened by R); C = 20 (4 mod 8) is no whole
+    number of 16-byte bf16 vectors, so the wrappers pad C with zero
+    channels. Tolerances as in the test above; each kernel counts one
+    launch per call and gives the same bits on a second call (no
+    atomics)."""
     B, H, W, C, Co = shape
     x, off, m, w, _ = _case(8, *shape, dtype, cuda_device, clamp=clamp)
     rng = np.random.default_rng(9)
@@ -214,18 +216,23 @@ def test_dcn_shift_bwd_tiled_kernels_match_plain(cuda_device, dtype, shape,
     tol = 1e-4 if dtype == torch.float32 else 5e-2
     before = dict(dcn_cuda.bwd_launches)
     col = dcn_cuda.dcn_shift_bwd_cols_cuda(x, off, m, clamp=clamp)
+    dx = dcn_cuda.dcn_shift_bwd_data_cuda(gk, off, m, x.shape, clamp=clamp)
     coord = dcn_cuda.dcn_shift_bwd_coord_cuda(x, gk, off, m, clamp=clamp)
     torch.cuda.synchronize()
-    assert dcn_cuda.bwd_launches["cols"] == before["cols"] + 1
-    assert dcn_cuda.bwd_launches["coord"] == before["coord"] + 1
+    assert all(dcn_cuda.bwd_launches[k] == before[k] + 1 for k in before)
     assert _rel(col, tdcn.shift_columns_reference(x, off, m,
                                                   clamp=clamp)) <= tol
+    assert dx.dtype == dtype and dx.shape == x.shape
+    assert _rel(dx, tdcn.shift_dx_reference(gk, off, m, x.shape,
+                                            clamp=clamp)) <= tol
     for a, b in zip(coord, tdcn.shift_coord_reference(x, gk, off, m,
                                                       clamp=clamp)):
         assert torch.isfinite(a).all()
         assert _rel(a, b) <= tol
     assert torch.equal(dcn_cuda.dcn_shift_bwd_cols_cuda(x, off, m,
                                                         clamp=clamp), col)
+    assert torch.equal(dcn_cuda.dcn_shift_bwd_data_cuda(gk, off, m, x.shape,
+                                                        clamp=clamp), dx)
     for a, b in zip(dcn_cuda.dcn_shift_bwd_coord_cuda(x, gk, off, m,
                                                       clamp=clamp), coord):
         assert torch.equal(a, b)

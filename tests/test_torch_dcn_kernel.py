@@ -117,6 +117,87 @@ def test_kernel_corner_rule_stays_in_the_slab_and_matches(clamp):
     torch.testing.assert_close(got, want, **TOL)
 
 
+def _data_gather_rule(gk, off, m, x_shape, K, clamp):
+    """The data kernel's gather, step by step: per 8x16 tile of input
+    pixels and per tap k, the gk box of the tile shifted by
+    (K/2 - ky - R, K/2 - kx - R) and widened by R (zero outside the
+    image); the per-(tap, box pixel) table of clipped offsets and mask,
+    filled from the window of the tile plus a halo of K/2 + R; and per
+    pixel the knots (dy, dx) read at box pixel (qy + R - dy, qx + R - dx)
+    where m tri tri is non-zero, summed in the kernel's order."""
+    B, H, W, C = x_shape
+    KK, pad = K * K, K // 2
+    R = math.ceil(clamp)
+    P = pad + R
+    TH, TW = dcn_cuda.TILE_H, dcn_cuda.TILE_W
+    BH, BW = TH + 2 * R, TW + 2 * R
+    gk5 = gk.reshape(B, H, W, KK, C)
+    o = off.clamp(-clamp, clamp)
+    dx = torch.zeros(B, H, W, C)
+    qy = torch.arange(TH * TW) // TW
+    qx = torch.arange(TH * TW) % TW
+    for b in range(B):
+        for y0 in range(0, H, TH):
+            for x0 in range(0, W, TW):
+                tab = torch.zeros(KK, BH * BW, 3)
+                for wy in range(TH + 2 * P):
+                    for wx in range(TW + 2 * P):
+                        gy, gx = y0 - P + wy, x0 - P + wx
+                        for k in range(KK):
+                            ry = wy - 2 * pad + k // K
+                            rx = wx - 2 * pad + k % K
+                            if not (0 <= ry < BH and 0 <= rx < BW):
+                                continue
+                            if 0 <= gy < H and 0 <= gx < W:
+                                tab[k, ry * BW + rx] = torch.stack(
+                                    [o[b, gy, gx, k, 0], o[b, gy, gx, k, 1],
+                                     m[b, gy, gx, k]])
+                acc = torch.zeros(TH * TW, C)
+                for k in range(KK):
+                    oy0 = y0 + pad - k // K - R
+                    ox0 = x0 + pad - k % K - R
+                    box = torch.zeros(BH, BW, C)
+                    ys, xs = max(oy0, 0), max(ox0, 0)
+                    ye, xe = min(oy0 + BH, H), min(ox0 + BW, W)
+                    if ys < ye and xs < xe:
+                        box[ys - oy0:ye - oy0, xs - ox0:xe - ox0] = \
+                            gk5[b, ys:ye, xs:xe, k]
+                    box = box.reshape(BH * BW, C)
+                    for iy in range(2 * R + 1):
+                        for ix in range(2 * R + 1):
+                            r = (qy + 2 * R - iy) * BW + qx + 2 * R - ix
+                            e = tab[k, r]
+                            ty = 1 - (e[:, 0] - (iy - R)).abs()
+                            tx = 1 - (e[:, 1] - (ix - R)).abs()
+                            w = e[:, 2] * ty.clamp(min=0) * tx.clamp(min=0)
+                            acc += w[:, None] * box[r]
+                acc = acc.reshape(TH, TW, C)
+                h, w_ = min(TH, H - y0), min(TW, W - x0)
+                dx[b, y0:y0 + h, x0:x0 + w_] = acc[:h, :w_]
+    return dx
+
+
+@pytest.mark.parametrize("K,clamp", [(3, 1.0), (3, 1.5), (5, 1.0)])
+def test_data_kernel_gather_rule_matches_plain(K, clamp):
+    """The data kernel's per-tap boxes, offset table and knot addressing
+    give the plain version's dx: partial tiles over two images, offsets
+    past the clamp, on +-clamp and on integers, a zero mask row."""
+    rng = np.random.default_rng(4)
+    B, H, W, C = 2, 13, 21, 4
+    KK = K * K
+    off = (rng.normal(size=(B, H, W, KK, 2)) * 1.3 * clamp).astype(np.float32)
+    off[0, 0, 0] = clamp
+    off[1, -1, -1] = -clamp
+    off[0, 5] = np.round(off[0, 5])
+    m = rng.random((B, H, W, KK)).astype(np.float32)
+    m[1, 2] = 0.0
+    gk = rng.normal(size=(B * H * W, KK * C)).astype(np.float32)
+    got = _data_gather_rule(_t(gk), _t(off), _t(m), (B, H, W, C), K, clamp)
+    want = tdcn.shift_dx_reference(_t(gk), _t(off), _t(m), (B, H, W, C),
+                                   K=K, clamp=clamp)
+    torch.testing.assert_close(got, want, **TOL)
+
+
 def _tile_ranges(n, step, count):
     return [(i * step, min(n, (i + 1) * step)) for i in range(count)]
 
@@ -183,7 +264,7 @@ BWD_SHAPES = [(8, 12, 40, 1024), (8, 24, 80, 512), (8, 48, 160, 256),
 @pytest.mark.parametrize("shape", BWD_SHAPES)
 @pytest.mark.parametrize("R", [1, 2])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kernel", ["cols", "coord"])
+@pytest.mark.parametrize("kernel", ["cols", "data", "coord"])
 def test_backward_plan_covers_the_problem_once(kernel, dtype, R, shape):
     """`bwd_plan`: the blocks' tiles (decoded as the kernels decode
     blockIdx.x) cover every pixel of every image exactly once and none
@@ -191,7 +272,8 @@ def test_backward_plan_covers_the_problem_once(kernel, dtype, R, shape):
     blockIdx.y so that each chunk is walked by exactly one split, none
     empty, only where the tiles fill fewer than the card's block slots,
     and then into no more blocks than one wave of slots holds; the shared
-    memory fits one block (two for cols) on an SM."""
+    memory fits the kernel's blocks per SM (cols and data two, coord one)
+    on an SM."""
     B, H, W, C = shape
     p = dcn_cuda.bwd_plan(kernel, B, H, W, C, R, dtype, H100_SMS)
     th, tw = p.tile
@@ -222,15 +304,18 @@ def test_backward_plan_covers_the_problem_once(kernel, dtype, R, shape):
 
 def test_backward_plan_splits_the_first_neck_layer():
     """8x12x40 at C = 1024 gives 48 tiles for 132 SMs: coord (one block per
-    SM) splits its 32 chunks 2 ways, cols (two per SM) its 16 chunks 4
-    ways; the 48x160 layer's 480 tiles fill the card unsplit."""
+    SM) splits its 32 chunks 2 ways, cols and data (two per SM) their 16
+    chunks 4 ways; the 48x160 layer's 480 tiles fill the card unsplit."""
     coord = dcn_cuda.bwd_plan("coord", 8, 12, 40, 1024, 1, torch.bfloat16,
                               H100_SMS)
     cols = dcn_cuda.bwd_plan("cols", 8, 12, 40, 1024, 1, torch.bfloat16,
                              H100_SMS)
+    data = dcn_cuda.bwd_plan("data", 8, 12, 40, 1024, 1, torch.bfloat16,
+                             H100_SMS)
     assert coord.grid == (48, 2) and coord.chunks_per_split == 16
     assert cols.grid == (48, 4) and cols.chunks_per_split == 4
-    for kernel in ("cols", "coord"):
+    assert data.grid == (48, 4) and data.chunks_per_split == 4
+    for kernel in ("cols", "data", "coord"):
         assert dcn_cuda.bwd_plan(kernel, 8, 48, 160, 256, 1, torch.bfloat16,
                                  H100_SMS).split == 1
 
@@ -244,3 +329,13 @@ def test_backward_plan_refuses_what_the_kernels_cannot_take():
                           H100_SMS, K=5)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         dcn_cuda.bwd_plan("cols", 1, 8, 16, 64, 1, torch.float16, H100_SMS)
+    # data's table holds K^2 taps' boxes: K = 41 is far beyond the SM
+    with pytest.raises(ValueError, match="shared memory"):
+        dcn_cuda.bwd_plan("data", 1, 64, 64, 64, 2, torch.bfloat16,
+                          H100_SMS, K=41)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        dcn_cuda.bwd_plan("data", 1, 8, 16, 64, 1, torch.float16, H100_SMS)
+    # K = 5 still fits (one block per SM)
+    assert dcn_cuda.bwd_plan("data", 1, 8, 16, 64, 2, torch.bfloat16,
+                             H100_SMS, K=5).smem_bytes <= \
+        dcn_cuda.SMEM_LIMIT
