@@ -11,11 +11,18 @@ kernels at the shapes of a train step), drives the flagship detector
 whole detector with a CPU run of the same weights, runs the KITTI eval path
 (`test_kitti_3d` over an in-memory synthetic split, result txts and AP),
 trains the flagship at 384x1280 bs=8 bf16 (`build(phase="train")`,
-`TrainLoader`, `make_train_step`, one `Trainer` epoch with snapshot,
-restore and eval), and compares one train step on the card with a float64
-step on the CPU, and that step's DCN backward calls with the float64
-plain backward on the same operands. Every kernel's launch count is set to 0
-before a main-path run and read after it. Any failed check ends the run
+`TrainLoader`, `make_train_step`), compares one train step on the card
+with a float64 step on the CPU, and that step's DCN backward calls with
+the float64 plain backward on the same operands, holds the device target
+assignment against the host targets on the same loader batches and trains
+with it, and drives a run directory's lifecycle: the train CLI's function
+(one Trainer epoch with snapshot, seed and eval), the test CLI's function
+from the run's source snapshot in a fresh process, the export CLI's
+function and `load_detector`, exported artifacts against eager detect in
+both align regimes, and a checkpoint in the original model's layout
+imported back under the pinned gather DCN. Every kernel's launch count is
+set to 0 before a main-path run and read after it; each phase prints its
+seconds. Any failed check ends the run
 with a non-zero exit code.
 
 The last line of standard output is
@@ -336,6 +343,14 @@ def _rel_err(got, ref):
     ref = ref.double()
     return float((got.double() - ref).abs().max()
                  / ref.abs().max().clamp(min=1e-12))
+
+
+def _rel_quantile(got, ref, q):
+    """The q quantile of |got - ref| over ref's largest magnitude."""
+    ref = ref.double()
+    d = (got.double() - ref).abs().flatten() / ref.abs().max().clamp(
+        min=1e-12)
+    return float(d.max()) if q == 1.0 else float(torch.quantile(d, q))
 
 
 def phase_card_vs_cpu():
@@ -960,6 +975,31 @@ def train_conf(crop, batch, dtype="bfloat16", backbone="dla102",
         anchors=None, bbox_means=None, bbox_stds=None, batch_size=batch)
 
 
+_TRAIN_SET = None
+
+
+def train_set(conf):
+    """The train runs' in-memory split (TRAIN_SCENES synthetic scenes of
+    TRAIN_IM, seed 7) for `conf`, whose anchors and whitening stats it
+    sets. The scenes are drawn once; later calls reuse them, with the
+    first call's anchors and stats."""
+    import copy
+
+    from m3dssd_tpu_torch.data.augment import Augmentation
+    from m3dssd_tpu_torch.data.synthetic import SyntheticTrainSet
+
+    global _TRAIN_SET
+    if _TRAIN_SET is None:
+        _TRAIN_SET = SyntheticTrainSet(conf, TRAIN_SCENES, seed=7,
+                                       imW=TRAIN_IM[1], imH=TRAIN_IM[0])
+        return _TRAIN_SET
+    for k in ("anchors", "bbox_means", "bbox_stds"):
+        setattr(conf, k, getattr(_TRAIN_SET.conf, k))
+    ds = copy.copy(_TRAIN_SET)
+    ds.conf, ds.transform = conf, Augmentation(conf)
+    return ds
+
+
 def bwd_counts():
     from m3dssd_tpu_torch.ops import dcn_cuda
 
@@ -986,29 +1026,20 @@ def sync_s(fn):
 def phase_train(label):
     """The flagship's train path at 384x1280 bs=8 bf16 with packed input:
     TrainLoader over an in-memory synthetic split, make_train_step, a
-    falling loss over FIXED_STEPS steps on one batch, the step's time split,
-    then one Trainer epoch with snapshot, restore and eval. Returns the
-    kernels' launches {forward, cols, data, coord} over the phase's runs."""
-    import tempfile
-
+    falling loss over FIXED_STEPS steps on one batch and the step's time
+    split (the Trainer epoch runs in `phase_run_lifecycle`). Returns the
+    kernels' launches {forward, cols, data, coord} over the phase's runs
+    and the step's numbers."""
     from m3dssd_tpu_torch.data.loader import TrainLoader
-    from m3dssd_tpu_torch.data.synthetic import (SyntheticEvalSet,
-                                                 SyntheticTrainSet)
-    from m3dssd_tpu_torch.inference import test_driver as drv
     from m3dssd_tpu_torch.losses.rpn_loss import RPNLossConfig, rpn_3d_loss
     from m3dssd_tpu_torch.models import build
-    from m3dssd_tpu_torch.models.layers import BatchNorm2d
     from m3dssd_tpu_torch.train.state import (create_train_state,
                                               make_train_step)
-    from m3dssd_tpu_torch.train.trainer import Trainer
-    from m3dssd_tpu_torch.utils.checkpoint import (latest_step,
-                                                   restore_checkpoint)
 
     B = TRAIN_BATCH
     t0 = time.perf_counter()
     conf = train_conf(TRAIN_CROP, B).replace(warmup=0.0, lr=FIXED_LR)
-    ds = SyntheticTrainSet(conf, TRAIN_SCENES, seed=7, imW=TRAIN_IM[1],
-                           imH=TRAIN_IM[0])
+    ds = train_set(conf)
     data_s = time.perf_counter() - t0
     loader = TrainLoader(ds, B, num_workers=8, seed=0, pack_s2d=True)
     t0 = time.perf_counter()
@@ -1112,58 +1143,305 @@ def phase_train(label):
     log("  step split (synchronised, median of 3): " + ", ".join(
         f"{k} {v:.2f} ms" for k, v in split.items()))
 
-    # one Trainer epoch: 8 steps, a snapshot, and the eval
+    del model, state, batches
+    torch.cuda.empty_cache()
+    return launches, {"step_ms": step_ms, "im_s": B * 1e3 / step_ms,
+                      "split_ms": split, "peak_gib": peak_gb,
+                      "loader_im_s": loader_ips}
+
+
+# --------------------------------------------------------------------------
+# device targets, the run directory's lifecycle and upstream checkpoints
+# --------------------------------------------------------------------------
+
+# loader batches on which the device assignment is held against the host's
+DT_BATCHES = 4
+# train steps with the targets assigned on the card
+DT_STEPS = 8
+# the loader alone: batches per reading, readings of each kind (A B B A)
+LOADER_BATCHES = 3
+LOADER_ROUNDS = 2
+# regression targets: device against host, relative to the largest
+TARGET_TOL = 1e-5
+GT_KEYS = ("gt_boxes2d", "gt_boxes3d", "gt_cls", "gt_valid", "ign_boxes",
+           "ign_valid")
+# validation images of the lifecycle's eval and test runs
+LIFE_VAL = 16
+# BN folded from the float32 checkpoint against the unfolded model: the
+# FOLD_Q quantile of each output's |diff| from the float32 unfolded model,
+# relative to its largest magnitude, at most FOLD_TOL in float32 and at most
+# FOLD_BF16_RATIO times the unfolded bf16 model's own in bf16. The largest
+# |diff| is left out: where an align threshold or an argmax flips under
+# rounding, a few outputs move far. Set from `profile_fold.py`'s readings
+# (PERF.md section 6)
+FOLD_KEYS = ("cls", "bbox_2d", "bbox_3d")
+FOLD_Q = 0.999
+FOLD_TOL = 1e-4
+FOLD_BF16_RATIO = 1.5
+
+
+def compare_targets(dev, host, gts):
+    """(images compared, images left out, fg anchors, mismatch messages)
+    of a device assignment against the host targets of the same batch.
+    An image with ignore boxes and no valid gt is left out: the host path
+    makes all its rois bg, the reference package's device path ignored
+    (ops/targets_device.py)."""
+    valid = gts["gt_valid"].bool().any(1)
+    igns = gts["ign_valid"].bool().any(1)
+    bad, n, skipped, fg = [], 0, 0, 0
+    for b in range(valid.shape[0]):
+        if not valid[b] and igns[b]:
+            skipped += 1
+            continue
+        n += 1
+        for k in ("labels", "labels_fg", "labels_bg", "labels_ign",
+                  "any_val"):
+            d, h = dev[k][b].cpu(), host[k][b]
+            if d.dtype != h.dtype or not torch.equal(d, h):
+                bad.append(f"image {b} {k}: {int((d != h).sum())} differ")
+        m = host["labels_fg"][b].bool()
+        fg += int(m.sum())
+        for k in ("bbox_2d", "bbox_3d"):
+            d, h = dev[k][b].cpu()[:, m], host[k][b][:, m]
+            if m.any():
+                err = float((d - h).abs().max() / h.abs().max().clamp(
+                    min=1e-6))
+                if err > TARGET_TOL:
+                    bad.append(f"image {b} {k}: {err:.2e} of the largest")
+    return n, skipped, fg, bad
+
+
+def loader_ips(loader, batches):
+    t0 = time.perf_counter()
+    for _ in loader.batches(batches):
+        pass
+    return batches * loader.batch_size / (time.perf_counter() - t0)
+
+
+def phase_train_device_targets(label, host_step):
+    """The flagship at 384x1280 bs=8 bf16 packed, `pre_compute_target`
+    off: the device assignment held against the host targets on the same
+    loader batches, DT_STEPS train steps with the targets assigned on the
+    card, and the loader alone with and without host targets. Returns the
+    kernels' launches over the steps."""
+    import copy
+
+    from m3dssd_tpu_torch.data.loader import TrainLoader
+    from m3dssd_tpu_torch.models import build
+    from m3dssd_tpu_torch.ops.targets_device import make_device_target_fn
+    from m3dssd_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+
+    B = TRAIN_BATCH
+    conf = train_conf(TRAIN_CROP, B)
+    ds = train_set(conf)
+    dconf = conf.replace(pre_compute_target=False)
+    ds_dev = copy.copy(ds)          # same scenes and augmentation, gts only
+    ds_dev.conf = dconf
+
+    def loaders():
+        return (TrainLoader(ds, B, num_workers=8, seed=0, pack_s2d=True),
+                TrainLoader(ds_dev, B, num_workers=8, seed=0, pack_s2d=True))
+
+    host_l, dev_l = loaders()
+    hb, db = list(host_l.batches(DT_BATCHES)), list(dev_l.batches(DT_BATCHES))
+    assign = make_device_target_fn(dconf, ds.rois)
+    n = skipped = fg = 0
+    for h, d in zip(hb, db):
+        check(torch.equal(h["images"], d["images"]),
+              "device-target loader: other images than the host loader's")
+        gts = {k: d[k].cuda() for k in GT_KEYS}
+        ni, ns, nf, bad = compare_targets(assign(gts), h, gts)
+        check(not bad, f"device targets against host targets: {bad[:5]}")
+        n, skipped, fg = n + ni, skipped + ns, fg + nf
+    check(n > 0 and fg > 0, f"device targets: {n} images, {fg} fg compared")
+    gts = {k: db[0][k].cuda() for k in GT_KEYS}
+    assign_ms = [cuda_ms(lambda: assign(gts), 10, warmup=2)
+                 for _ in range(3)]
+
+    model = build(dconf, seed=0, phase="train")
+    state = create_train_state(dconf, model, max_iter=10 ** 6)
+    step = make_train_step(dconf, ds.rois, packed_input=True)
+    launches = dict.fromkeys(("forward",) + BWD_KERNELS, 0)
+    losses, step_s = [], []
+    # batches loaded first, as phase_train's: loader threads running beside
+    # the step slow its launches
+    for batch in list(dev_l.batches(DT_STEPS)):
+        reset_counts()
+        stats, s = sync_s(lambda: step(state, batch))
+        cnt = bwd_counts()
+        check(all(v == 8 for v in cnt.values()),
+              f"device-target step launched {cnt}, expected 8 of each")
+        for k in launches:
+            launches[k] += cnt[k]
+        losses.append(float(stats["loss"]))
+        step_s.append(s)
+    check(all(math.isfinite(v) for v in losses),
+          f"device-target steps: losses {losses}")
+    warm = sorted(step_s[2:])
+    step_ms = 1e3 * warm[len(warm) // 2]
+    del model, state, step
+    torch.cuda.empty_cache()
+
+    reads = {"host": [], "device": []}
+    for kind in ("host", "device", "device", "host")[:2 * LOADER_ROUNDS]:
+        host_l, dev_l = loaders()
+        reads[kind].append(loader_ips(host_l if kind == "host" else dev_l,
+                                      LOADER_BATCHES))
+    log(f"device targets 384x1280 bs={B} ({label}): {n} images of "
+        f"{DT_BATCHES} loader batches equal to the host targets (labels "
+        f"and masks exact, {fg} fg anchors' boxes within {TARGET_TOL:g}); "
+        f"{skipped} images with only ignore boxes left out")
+    log(f"  assignment on the card: {', '.join(f'{v:.3f}' for v in assign_ms)}"
+        f" ms per batch ({len(ds.rois)} anchors x {dconf.max_gts} gts)")
+    log(f"  train step with device targets, median of {len(warm)} warm "
+        f"steps: {step_ms:.2f} ms = {B * 1e3 / step_ms:.2f} im/s (host "
+        f"targets, phase_train: {host_step:.2f} ms); losses "
+        + ", ".join(f"{v:.4f}" for v in losses))
+    for kind, v in reads.items():
+        log(f"  loader alone, {'host' if kind == 'host' else 'no host'} "
+            f"targets (8 threads, {LOADER_BATCHES} batches per reading): "
+            + ", ".join(f"{x:.2f}" for x in v) + f" im/s (spread "
+            f"{min(v):.2f}-{max(v):.2f})")
+    return launches
+
+
+def start_py(code):
+    """Start `code` in a fresh Python process; `finish_py` collects it."""
+    return subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def finish_py(proc, timeout=600):
+    """Wait for a `start_py` process (killed at `timeout`); returns the JSON
+    object its last output line prints."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure(f"subprocess ran past {timeout} s")
+    check(proc.returncode == 0, f"subprocess failed:\n{err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+SNAPSHOT_TEST = """
+import json, os, sys
+sys.path.insert(0, {root!r})
+from m3dssd_tpu_torch.scripts import test as cli
+mod = cli.use_run_source({run!r})
+from m3dssd_tpu_torch.data.synthetic import SyntheticEvalSet
+from m3dssd_tpu_torch.ops import _build, dcn_cuda
+conf = mod.load_conf({run!r})
+val = SyntheticEvalSet(conf, {n}, seed=8, imW={imw}, imH={imh})
+gt = val.write_labels(os.path.join({run!r}, "gt_test"))
+dcn_cuda.launches = 0
+res, sel = mod.run_test({run!r}, dataset=val, gt_path=gt)
+print(json.dumps({{"source": mod.package_dir(), "dcn_cuda": dcn_cuda.__file__,
+                  "libs": sorted(os.listdir(_build.BUILD_DIR)),
+                  "build_dir": _build.BUILD_DIR,
+                  "launches": dcn_cuda.launches,
+                  "car_3d_r40": res.get("Car_3d_R40"), "sel": sel}}))
+"""
+
+
+def phase_run_lifecycle(label):
+    """The run directory at full width (flagship, 384x1280 bs=8): the train
+    CLI's function (one Trainer epoch: 8 steps, source snapshot, checkpoint,
+    seed, eval on LIFE_VAL images), the test CLI's function from the run's
+    source snapshot in a fresh process (its kernels built from the
+    snapshot's csrc/), the export CLI's function (batched, packed, BN
+    folded from the float32 checkpoint) and `load_detector`, its artifact
+    against eager detect on the same folded weights and the folded model
+    against the unfolded one, and a second artifact in the other align
+    regime. Returns the kernels' launches."""
+    import tempfile
+
+    from m3dssd_tpu_torch.anchors import locate_anchors
+    from m3dssd_tpu_torch.data.synthetic import SyntheticEvalSet
+    from m3dssd_tpu_torch.inference import test_driver as drv
+    from m3dssd_tpu_torch.inference.detect import make_batch_detector
+    from m3dssd_tpu_torch.inference.export import (export_detector,
+                                                   load_detector,
+                                                   save_exported)
+    from m3dssd_tpu_torch.models import bias_background, build, rpn
+    from m3dssd_tpu_torch.models.layers import BatchNorm2d
+    from m3dssd_tpu_torch.ops import dcn_cuda
+    from m3dssd_tpu_torch.scripts import export_model as export_cli
+    from m3dssd_tpu_torch.scripts import train as train_cli
+    from m3dssd_tpu_torch.train.state import create_train_state
+    from m3dssd_tpu_torch.utils.checkpoint import (is_seed_checkpoint,
+                                                   latest_step,
+                                                   read_model_weights,
+                                                   restore_checkpoint)
+    from m3dssd_tpu_torch.utils.fold_bn import fold_bn_eval
+
+    B = TRAIN_BATCH
+    launches = dict.fromkeys(("forward",) + BWD_KERNELS, 0)
     with tempfile.TemporaryDirectory() as tmp:
-        tconf = conf.replace(max_epoch=1, snapshot_epoch=1, eval_epoch=1,
-                             eval_batch_size=8, display_iter=4,
-                             warmup=1.0 / 70)
-        val = SyntheticEvalSet(tconf, 16, seed=8, imW=TRAIN_IM[1],
+        run_dir = os.path.join(tmp, "run")
+        # every NMS slot kept (the result writer drops the rows below
+        # score_thres all the same), so the artifacts' compared rows are
+        # real detections
+        conf = train_conf(TRAIN_CROP, B).replace(
+            max_epoch=1, snapshot_epoch=1, eval_epoch=1, eval_batch_size=B,
+            display_iter=4, warmup=1.0 / 70, nms_score_stop=False)
+        ds = train_set(conf)
+        val = SyntheticEvalSet(conf, LIFE_VAL, seed=8, imW=TRAIN_IM[1],
                                imH=TRAIN_IM[0])
         reset_counts()
-        t0 = time.perf_counter()
-        tr = Trainer(tconf, None, os.path.join(tmp, "run"), dataset=ds,
-                     val_dataset=val)
-        tr.run(1)
-        torch.cuda.synchronize()
-        run_s = time.perf_counter() - t0
+        tr, train_s = sync_s(lambda: train_cli.run_train(
+            conf, None, run_dir, dataset=ds, val_dataset=val))
         n = bwd_counts()
         for k in launches:
             launches[k] += n[k]
-        check(tr.state.step == 8 and n["cols"] == 64,
-              f"trainer: {tr.state.step} steps, launches {n}")
-        wdir = os.path.join(tr.output_dir, "weights")
-        check(latest_step(wdir) == 8, f"trainer: snapshot {latest_step(wdir)}")
-        fresh = create_train_state(tconf, build(tconf, seed=1,
-                                                phase="train"), 8)
+        evals = 8 * (LIFE_VAL // B)
+        check(tr.state.step == 8 and n["cols"] == 64
+              and n["forward"] == 64 + evals,
+              f"train CLI: {tr.state.step} steps, launches {n}")
+        wdir = os.path.join(run_dir, "weights")
+        check(latest_step(wdir) == 8, f"train CLI: snapshot "
+              f"{latest_step(wdir)}")
+        fresh = create_train_state(tr.conf, build(tr.conf, seed=1,
+                                                  phase="train"), 8)
         restore_checkpoint(wdir, fresh)
         a, b2 = tr.state.model.state_dict(), fresh.model.state_dict()
         check(fresh.step == 8 and a.keys() == b2.keys()
               and all(torch.equal(a[k], b2[k]) for k in a),
-              "trainer: restored model differs")
+              "train CLI: restored model differs")
         oa, ob = tr.state.optimizer.state_dict(), \
             fresh.optimizer.state_dict()
-        check(oa["count"] == ob["count"] and all(
-            torch.equal(oa["state"][k]["momentum_buffer"],
-                        ob["state"][k]["momentum_buffer"])
-            for k in oa["state"]), "trainer: restored optimizer differs")
-        res_dir = os.path.join(tr.output_dir, "results", "results_1", "data")
-        txts = read_txts(res_dir)
-        check(len(txts) == 16, f"trainer eval: {len(txts)} result txts")
-        rows = check_rows(txts, tconf.lbls)
+        check(oa["count"] == ob["count"] and oa["state"].keys()
+              == ob["state"].keys() and all(
+                  torch.equal(oa["state"][k]["momentum_buffer"],
+                              ob["state"][k]["momentum_buffer"])
+                  for k in oa["state"]),
+              "train CLI: restored optimizer differs")
         check(all(math.isfinite(float(v)) for v in tr.last_stats.values()),
-              f"trainer: last step's stats {tr.last_stats}")
-        check(tr.last_eval is not None and "Car_3d_R40" in tr.last_eval,
-              "trainer eval: no AP")
-        log(f"  Trainer.run(1): {tr.state.step} steps, snapshot at step 8 "
-            f"restored bit-identically, eval wrote {len(txts)} txts "
-            f"({rows} rows), "
-            f"Car_3d_R40 {tr.last_eval['Car_3d_R40']}; {run_s:.1f} s "
-            f"with set-up; kernel launches {n}")
+              f"train CLI: last step's stats {tr.last_stats}")
+        snap = os.path.join(run_dir, "model_src", "m3dssd_tpu_torch")
+        check(is_seed_checkpoint(run_dir) and os.path.exists(
+            os.path.join(snap, "csrc", "dcn_shift.cu"))
+            and not os.path.exists(os.path.join(snap, "_build")),
+            "train CLI: no seed or no source snapshot with csrc/")
+        txts = read_txts(os.path.join(run_dir, "results", "results_1",
+                                      "data"))
+        check(len(txts) == LIFE_VAL and tr.last_eval is not None
+              and "Car_3d_R40" in tr.last_eval,
+              f"train CLI eval: {len(txts)} result txts")
+        rows = check_rows(txts, conf.lbls)
+        log(f"lifecycle 384x1280 bs={B} ({label}): train CLI "
+            f"{tr.state.step} steps, checkpoint (model and optimizer) "
+            f"restored bit-identically, seed and source snapshot written, "
+            f"eval {len(txts)} txts ({rows} rows), Car_3d_R40 "
+            f"{tr.last_eval['Car_3d_R40']}; {train_s:.1f} s; kernel "
+            f"launches {n}")
 
         # what the eval saw: after 8 steps the BN running statistics are
         # still 0.9^8 of their init, far from the batch statistics
-        pack = drv._packer(tconf, packed_input=True, pin=False)
-        x = torch.cat([pack(val[i]["input"]) for i in range(8)]).cuda()
+        pack = drv._packer(conf, packed_input=True, pin=True)
+        images = torch.cat([pack(val[i]["input"]) for i in range(B)]).cuda()
         ratio = []
         hooks = [m.register_forward_hook(
             lambda mod, inp, out: ratio.append(float(
@@ -1174,24 +1452,225 @@ def phase_train(label):
         with torch.no_grad():
             for mode in ("eval", "train"):   # train mode last: it moves stats
                 getattr(tr.model, mode)()
-                out = tr.model(x, packed=True)
+                out = tr.model(images, packed=True)
                 for h in hooks:
                     h.remove()
                 hooks = []
                 size[mode] = max(float(out[k].float().abs().max())
                                  for k in ("bbox_2d", "bbox_3d"))
                 check(math.isfinite(size[mode]),
-                      f"trainer model in {mode} mode: non-finite boxes")
-        log(f"  after 8 steps, at 8 eval images: a BN input's batch "
+                      f"trained model in {mode} mode: non-finite boxes")
+        log(f"  after 8 steps, at {B} eval images: a BN input's batch "
             f"variance up to {max(ratio):.2f}x its running variance; "
             f"largest box output {size['eval']:.4f} in eval mode, "
             f"{size['train']:.4f} in train mode")
         del tr, fresh
-    del model, state, batches
+        torch.cuda.empty_cache()
+
+        # the test CLI runs in its own process while this one exports
+        t_test = time.perf_counter()
+        proc = start_py(SNAPSHOT_TEST.format(
+            root=ROOT, run=run_dir, n=LIFE_VAL, imw=TRAIN_IM[1],
+            imh=TRAIN_IM[0]))
+        try:
+            art = os.path.join(tmp, "det.pt2")
+            ep, export_s = sync_s(lambda: export_cli.run_export(
+                run_dir, art, batch_size=B, packed=True, fold_bn=True))
+        finally:
+            out = finish_py(proc)
+        test_s = time.perf_counter() - t_test
+        check(out["source"] == snap and out["dcn_cuda"].startswith(snap)
+              and out["build_dir"].startswith(snap)
+              and any(f.startswith("libdcn_shift-") for f in out["libs"]),
+              f"test CLI did not run the snapshot's package: {out}")
+        check(out["launches"] == evals and out["car_3d_r40"] is not None,
+              f"test CLI from the snapshot: {out}")
+        tdir = os.path.join(run_dir, "results", "results_test_8", "data")
+        check(len(read_txts(tdir)) == LIFE_VAL, "test CLI: result txts")
+        log(f"  test CLI from the run's snapshot (fresh process, kernels "
+            f"built into {os.path.relpath(out['build_dir'], tmp)}): "
+            f"{out['launches']} kernel launches, Car_3d_R40 "
+            f"{out['car_3d_r40']}; {test_s:.1f} s, beside the export")
+
+        det = load_detector(art)
+        ops = sum(str(nd.target).startswith("m3dssd.dcn_shift")
+                  for nd in ep.graph.nodes if nd.op == "call_function")
+        check(ops == 8, f"exported graph: {ops} m3dssd.dcn_shift calls")
+        check(det.meta["platforms"] == ["cuda"] and det.meta["packed_input"],
+              f"artifact sidecar {det.meta}")
+        images = images.float()         # the artifacts take float32 images
+        sfs = torch.ones(B, device="cuda")
+        rois = locate_anchors(conf.anchors, conf.feat_size, conf.feat_stride)
+        weights, _ = read_model_weights(wdir)
+        # BN folded from the float32 checkpoint against the unfolded model:
+        # in float32 (the fold itself), and in bf16 against the float32
+        # unfolded outputs (folding adds no more than bf16's own rounding)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        conf32 = conf.replace(compute_dtype="float32")
+        outs, models = {}, {}
+        for name, c, fold in (("f32", conf32, False),
+                              ("f32 folded", conf32, True),
+                              ("bf16", conf, False),
+                              ("bf16 folded", conf, True)):
+            m = build(c)
+            m.load_state_dict(weights, strict=True)
+            if fold:
+                check(fold_bn_eval(m, weights) > 0, "fold_bn_eval: none")
+            with torch.no_grad():
+                o = m(images, packed=True)
+            outs[name] = {k: o[k].float() for k in FOLD_KEYS}
+            models[name] = m
+        fold_err = {name: {q: max(_rel_quantile(outs[name][k],
+                                                outs["f32"][k], q)
+                                  for k in FOLD_KEYS) for q in (FOLD_Q, 1.0)}
+                    for name in ("f32 folded", "bf16", "bf16 folded")}
+        check(fold_err["f32 folded"][FOLD_Q] <= FOLD_TOL
+              and fold_err["bf16 folded"][FOLD_Q]
+              <= FOLD_BF16_RATIO * fold_err["bf16"][FOLD_Q],
+              f"BN folded against unfolded, relative |diff| of the outputs "
+              f"against the float32 unfolded model ({FOLD_Q} quantile, "
+              f"largest): {fold_err}")
+        unfolded = make_batch_detector(conf, rois, models["bf16"],
+                                       packed_input=True)(images, sfs)
+        # the artifact's weights
+        eager = make_batch_detector(conf, rois, models["bf16 folded"],
+                                    packed_input=True)
+        del models, outs
+        sels = []
+        topm = rpn.confident_topm
+        rpn.confident_topm = lambda *a: sels.append(topm(*a)) or sels[-1]
+        try:
+            want = eager(images, sfs)
+        finally:
+            rpn.confident_topm = topm
+        cli_regime = "sparse" if sels[-1].ok else "dense"
+        dcn_cuda.launches = 0
+        got = det(images, sfs)
+        torch.cuda.synchronize()
+        check(dcn_cuda.launches == 8, f"artifact: {dcn_cuda.launches} "
+              "kernel launches in one call")
+        launches["forward"] += dcn_cuda.launches
+        nvalid = int((want[..., 4] > 0).sum())
+        check(tuple(got.shape) == (B, conf.nms_topN_post, 14)
+              and bool(torch.isfinite(got).all()) and nvalid > 0
+              and torch.equal(got, want), "export CLI artifact against "
+              "eager on the same folded weights: not the same dets")
+        same_u = torch.equal(got, unfolded)
+        art_ms = [cuda_ms(lambda: det(images, sfs), 5, warmup=2)
+                  for _ in range(2)]
+        eager_ms = [cuda_ms(lambda: eager(images, sfs), 5, warmup=2)
+                    for _ in range(2)]
+        log(f"  export CLI (batched, packed, BN folded from the float32 "
+            f"checkpoint): {export_s:.1f} s, "
+            f"{det.meta['bytes'] / 2 ** 20:.1f} MiB, {ops} m3dssd.dcn_shift "
+            f"calls; {cli_regime} align regime (trained 8 steps); on {B} val "
+            f"images equal to eager on the same folded weights ({nvalid} "
+            f"valid rows, bit for bit); outputs ({', '.join(FOLD_KEYS)}) "
+            f"against the float32 unfolded model, relative |diff| at the "
+            f"{FOLD_Q} quantile (largest): " + ", ".join(
+                f"{name} {v[FOLD_Q]:.3e} ({v[1.0]:.3e})"
+                for name, v in fold_err.items())
+            + f" (limits: float32 folded {FOLD_TOL:g}, bf16 folded "
+            f"{FOLD_BF16_RATIO:g}x bf16's); dets equal to the unfolded bf16 "
+            f"model's: {same_u}; "
+            f"artifact {', '.join(f'{v:.2f}' for v in art_ms)} ms per call, "
+            f"eager {', '.join(f'{v:.2f}' for v in eager_ms)} ms ({label})")
+        del det, ep, eager
+
+        # the other align regime: a fresh model (every position confident:
+        # dense) or a background-biased one (none confident: sparse)
+        regime = "sparse" if cli_regime == "dense" else "dense"
+        m = perturb_neck_offsets(build(conf, seed=0), seed=1)
+        if regime == "sparse":
+            bias_background(m, conf.num_classes, 4.0)
+        eager = make_batch_detector(conf, rois, m, packed_input=True)
+        ep, ex_s = sync_s(lambda: export_detector(
+            conf, rois, m, batch_size=B, packed_input=True))
+        path = os.path.join(tmp, f"{regime}.pt2")
+        save_exported(ep, path, conf=conf, batch_size=B, packed_input=True)
+        det = load_detector(path)
+        dcn_cuda.launches = 0
+        got = det(images, sfs)
+        torch.cuda.synchronize()
+        n_art = dcn_cuda.launches
+        launches["forward"] += n_art
+        sels = []
+        rpn.confident_topm = lambda *a: sels.append(topm(*a)) or sels[-1]
+        try:
+            want = eager(images, sfs)
+        finally:
+            rpn.confident_topm = topm
+        seen = "sparse" if sels[-1].ok else "dense"
+        nvalid = int((want[..., 4] > 0).sum())
+        check(seen == regime and n_art == 8 and nvalid > 0
+              and torch.equal(got, want),
+              f"{regime} artifact against eager: ran the {seen} align, "
+              f"{n_art} launches, {nvalid} valid rows, same dets "
+              f"{torch.equal(got, want)}")
+        art_ms = [cuda_ms(lambda: det(images, sfs), 5, warmup=2)
+                  for _ in range(2)]
+        eager_ms = [cuda_ms(lambda: eager(images, sfs), 5, warmup=2)
+                    for _ in range(2)]
+        log(f"  {regime} align regime ({'fresh init' if regime == 'dense' else 'bias_background(4.0)'}): "
+            f"export {ex_s:.1f} s; artifact equals eager ({nvalid} valid "
+            f"rows, bit for bit); {n_art} kernel launches per call; artifact "
+            f"{', '.join(f'{v:.2f}' for v in art_ms)} ms per call, eager "
+            f"{', '.join(f'{v:.2f}' for v in eager_ms)} ms ({label})")
+        del m, eager, ep, det
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_upstream(label):
+    """A checkpoint of the original model: the card model's weights
+    written in the original names and layouts with the port's key map,
+    imported back bit-equal, the conf pinned to the gather DCN, and one
+    detect under it (no shift-DCN kernel: the neck runs `dcn_v2`)."""
+    from m3dssd_tpu_torch.anchors import locate_anchors
+    from m3dssd_tpu_torch.config import flagship_conf
+    from m3dssd_tpu_torch.inference.detect import make_batch_detector
+    from m3dssd_tpu_torch.models import build
+    from m3dssd_tpu_torch.models.necks import DCN
+    from m3dssd_tpu_torch.ops import dcn_cuda
+    from m3dssd_tpu_torch.utils.torch_import import (
+        load_reference_checkpoint, pin_parity_conf)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_reference_layout import reference_state_dict
+
+    conf = flagship_conf(TRAIN_CROP)
+    A, C = conf.anchors.shape[0], conf.num_classes
+    model = perturb_neck_offsets(build(conf, seed=0), seed=1)
+    sd = reference_state_dict(model, A, C, block="bottleneck")
+    pinned = pin_parity_conf(conf, sd)
+    m2 = build(pinned, seed=5)
+    got, stats = load_reference_checkpoint(m2, sd, A, C, block="bottleneck")
+    mine = model.state_dict()
+    equal = all(torch.equal(got[k], mine[k]) for k in mine
+                if not k.endswith("num_batches_tracked"))
+    check(equal and stats["loaded"] == len(sd) and not stats["missing"]
+          and not stats["unmapped"] and not stats["shape_mismatch"],
+          f"upstream round trip: equal {equal}, loaded {stats['loaded']} of "
+          f"{len(sd)}, unmapped {stats['unmapped'][:3]}")
+    check(pinned.dcn_shift_clamp is None and not any(
+        m.uses_shift for m in m2.modules() if isinstance(m, DCN)),
+        "pin_parity_conf did not pin dcn_shift_clamp=None")
+    m2.load_state_dict(got, strict=True)
+    rois = locate_anchors(conf.anchors, conf.feat_size, conf.feat_stride)
+    B = TRAIN_BATCH
+    images = packed_images(B, *TRAIN_CROP, seed=2, device="cuda")
+    dcn_cuda.launches = 0
+    dets = make_batch_detector(pinned, rois, m2, packed_input=True)(
+        images, torch.ones(B, device="cuda"))
+    check(dcn_cuda.launches == 0 and bool(torch.isfinite(dets).all())
+          and tuple(dets.shape) == (B, conf.nms_topN_post, 14),
+          f"pinned detect: {dcn_cuda.launches} launches")
+    log(f"upstream checkpoint 384x1280 ({label}): {len(sd)} tensors in the "
+        f"original layout imported back bit-equal; dcn_shift_clamp pinned to "
+        f"None; detect bs={B} on the gather DCN: dets finite, 0 shift-DCN "
+        "kernel launches")
+    del model, m2
     torch.cuda.empty_cache()
-    return launches, {"step_ms": step_ms, "im_s": B * 1e3 / step_ms,
-                      "split_ms": split, "peak_gib": peak_gb,
-                      "loader_im_s": loader_ips}
 
 
 def update_errors(after, before, ref_after, names):
@@ -1345,20 +1824,41 @@ def main() -> int:
         log(f"  {hgmma} HGMMA (wgmma) instructions in the forward library's "
             "SASS")
 
-    totals, max_err = phase_kernel_vs_plain(torch.device("cuda"))
-    bt, prod_ms, bwd_err = phase_bwd_vs_plain(torch.device("cuda"))
-    launches = phase_detect(label)
-    phase_card_vs_cpu()
-    launches += phase_eval(label)
-    train_launches, _ = phase_train(label)
-    phase_train_card_vs_cpu()
-    launches += train_launches["forward"]
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"phase {fn.__name__}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    dev = torch.device("cuda")
+    totals, max_err = timed(phase_kernel_vs_plain, dev)
+    bt, prod_ms, bwd_err = timed(phase_bwd_vs_plain, dev)
+    # the forward kernel's launches on the main path, per phase
+    fwd = {"detect": timed(phase_detect, label)}
+    timed(phase_card_vs_cpu)
+    fwd["eval"] = timed(phase_eval, label)
+    train_launches, train_stats = timed(phase_train, label)
+    timed(phase_train_card_vs_cpu)
+    dt_launches = timed(phase_train_device_targets, label,
+                        train_stats["step_ms"])
+    life_launches = timed(phase_run_lifecycle, label)
+    timed(phase_upstream, label)
+    for name, n in (("train", train_launches), ("device_targets",
+                                                dt_launches),
+                    ("lifecycle", life_launches)):
+        fwd[name] = n["forward"]
+        if name != "train":
+            for k in BWD_KERNELS:
+                train_launches[k] += n[k]
+    launches = sum(fwd.values())
+    log("forward kernel launches (through m3dssd::dcn_shift) per phase: "
+        + ", ".join(f"{k} {v}" for k, v in fwd.items()))
 
     # the forward kernel's numbers summed over one forward of each size:
     # the 384x1280 bs=1 and bs=8 (the eval and train runs') and the
     # 512x1760 bs=8 neck, 8 layers each
-    fwd = {k: sum(t[k] for t in totals.values())
-           for k in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
+    fwd_t = {k: sum(t[k] for t in totals.values())
+             for k in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
     kernels = [{
         "name": "dcn_v2_shift",
         "route": "cuda",
@@ -1366,11 +1866,12 @@ def main() -> int:
         "replaces": "m3dssd_tpu/ops/dcn_pallas.py:133",
         "launches": launches,
         "max_abs_err": max_err,
-        "ms": fwd["ms"],
-        "plain_ms": fwd["plain_ms"],
-        "bound_ms": fwd["bound_ms"],
-        "bound_by": ("bytes" if fwd["bytes_ms"] > fwd["ops_ms"]
+        "ms": fwd_t["ms"],
+        "plain_ms": fwd_t["plain_ms"],
+        "bound_ms": fwd_t["bound_ms"],
+        "bound_by": ("bytes" if fwd_t["bytes_ms"] > fwd_t["ops_ms"]
                      else "operations"),
+        "launches_by_phase": fwd,
         "library_ms": None,
         "forwards": {run: {k: t[k] for k in ("ms", "plain_ms", "bound_ms")}
                      for run, t in totals.items()},

@@ -220,21 +220,24 @@ def train_sample(im: np.ndarray, imobj: AttrDict, transform, conf, rois,
                  rng=None):
     """One train sample from a decoded BGR image and a copy of its imdb
     entry: augment (drawing from `rng`), BGR -> RGB per 3-channel group,
-    and the anchor targets of the augmented gts over `rois`."""
-    from ..targets import build_targets
+    and the anchor targets of the augmented gts over `rois` ("target"), or
+    with `pre_compute_target` off only the padded gts ("gt"), whose targets
+    the train step assigns on the device."""
+    from ..targets import build_gt_arrays, build_targets
 
-    if not conf.pre_compute_target:
-        raise NotImplementedError("on-device target assignment "
-                                  "(pre_compute_target=False) is not ported")
     im, imobj = transform(im, imobj, rng=rng)
     groups = [im[:, :, i:i + 3][:, :, ::-1] for i in range(0, im.shape[2], 3)]
     im = np.ascontiguousarray(np.concatenate(groups, axis=2))
-    return {"input": im.astype(np.float32),
-            "meta": {"p2": imobj.p2, "p2_inv": imobj.p2_inv,
-                     "imH": imobj.imH, "imW": imobj.imW,
-                     "scale_factor": imobj.get("scale_factor", 1.0),
-                     "id": imobj.id},
-            "target": build_targets(conf, imobj, rois=rois)}
+    sample = {"input": im.astype(np.float32),
+              "meta": {"p2": imobj.p2, "p2_inv": imobj.p2_inv,
+                       "imH": imobj.imH, "imW": imobj.imW,
+                       "scale_factor": imobj.get("scale_factor", 1.0),
+                       "id": imobj.id}}
+    if conf.pre_compute_target:
+        sample["target"] = build_targets(conf, imobj, rois=rois)
+    else:
+        sample["gt"] = build_gt_arrays(conf, imobj)
+    return sample
 
 
 def prepare_train(conf, imdb, cache_folder: Optional[str] = None):

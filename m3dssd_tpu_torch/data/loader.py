@@ -55,13 +55,20 @@ def collate(samples) -> Dict[str, np.ndarray]:
     """Stack per-image samples into the batch arrays the train step takes:
     images [B,H,W,3] float32; labels [B,N] int32; labels_fg/bg/ign [B,N]
     int8; bbox_2d [B,4,N] and bbox_3d [B,7,N] float32 (channel-major);
-    any_val [B] int32; p2_inv [B,4,4] float32."""
+    any_val [B] int32; p2_inv [B,4,4] float32. Samples of the on-device
+    target path carry padded gts instead of the targets: gt_boxes2d
+    [B,G,4], gt_boxes3d [B,G,11], gt_cls [B,G], gt_valid [B,G], ign_boxes
+    [B,G,4], ign_valid [B,G]."""
     batch = {"images": np.stack([s["input"] for s in samples], axis=0)}
-    for k in samples[0]["target"]:
-        batch[k] = np.stack([np.asarray(s["target"][k]) for s in samples],
-                            axis=0)
-    for k in ("bbox_2d", "bbox_3d"):
-        batch[k] = np.ascontiguousarray(batch[k].transpose(0, 2, 1))
+    if "target" in samples[0]:
+        for k in samples[0]["target"]:
+            batch[k] = np.stack([np.asarray(s["target"][k])
+                                 for s in samples], axis=0)
+        for k in ("bbox_2d", "bbox_3d"):
+            batch[k] = np.ascontiguousarray(batch[k].transpose(0, 2, 1))
+    else:
+        for k in samples[0]["gt"]:
+            batch[k] = np.stack([s["gt"][k] for s in samples], axis=0)
     batch["p2_inv"] = np.stack(
         [np.asarray(s["meta"]["p2_inv"], np.float32) for s in samples], 0)
     return batch

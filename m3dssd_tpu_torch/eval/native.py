@@ -24,7 +24,10 @@ from typing import List, Optional
 import numpy as np
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-NATIVE_DIR = os.path.join(os.path.dirname(_PKG), "native")
+# the repo's native/ beside the package; M3DSSD_NATIVE_DIR names it for a
+# copy of the package elsewhere (a run's source snapshot)
+NATIVE_DIR = os.environ.get("M3DSSD_NATIVE_DIR") or os.path.join(
+    os.path.dirname(_PKG), "native")
 BUILD_DIR = os.path.join(_PKG, "_build")
 CXX_FLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared", "-fopenmp", "-Wall"]
 

@@ -14,7 +14,9 @@ of positions; NMS then runs over those candidates, by the bitmask fixpoint
 (`nms_bitmask`) or by first-k selection. That leaves every row at or above
 `score_thres` exactly as the dense path gives it (a sub-threshold box never
 suppresses a higher-scoring one). When any image of the batch has more
-confident positions than the budget, the whole batch takes the dense path.
+confident positions than the budget, the whole batch takes the dense path
+(`ops/control.py:cond`: eager it reads one flag per batch back, under
+torch.export both paths are in the graph).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 
 from ..ops.boxes import bbox_transform_inv_t, decode_bbox_3d_t
 from ..ops.compact import first_m_true
+from ..ops.control import cond
 from ..ops.nms import nms_bitmask_select_t, nms_select_t
 from ..utils.device import resolve_device
 
@@ -109,20 +112,22 @@ def _clip_dets_2d(box, scale_factors, test_scale):
                         for i in range(4)], dim=1)
 
 
-class _Decoder:
-    """Per-anchor constants on the device, and decode + NMS + dets table."""
+class _Decoder(torch.nn.Module):
+    """Per-anchor constants on the device (buffers, so an exported program
+    holds them), and decode + NMS + dets table."""
 
     def __init__(self, conf, rois: np.ndarray, device: torch.device,
                  use_topk_pre: bool = False):
+        super().__init__()
         f32 = torch.float32
-        self.rois_t = torch.as_tensor(rois[:, :5].T, dtype=f32, device=device)
         tracker = rois[:, 4].astype(np.int64)
-        self.src3d_t = torch.as_tensor(
-            np.asarray(conf.anchors)[tracker, 4:9].T, dtype=f32, device=device)
-        self.means = torch.as_tensor(np.asarray(conf.bbox_means).reshape(-1),
-                                     dtype=f32, device=device)
-        self.stds = torch.as_tensor(np.asarray(conf.bbox_stds).reshape(-1),
-                                    dtype=f32, device=device)
+        for name, a in (
+                ("rois_t", rois[:, :5].T),
+                ("src3d_t", np.asarray(conf.anchors)[tracker, 4:9].T),
+                ("means", np.asarray(conf.bbox_means).reshape(-1)),
+                ("stds", np.asarray(conf.bbox_stds).reshape(-1))):
+            self.register_buffer(name, torch.as_tensor(
+                np.ascontiguousarray(a), dtype=f32, device=device))
         self.top_post = int(conf.nms_topN_post)
         self.nms_thres = float(conf.nms_thres)
         self.nms_stop = _nms_cfg(conf)
@@ -162,16 +167,11 @@ class _Decoder:
             final_3d.transpose(1, 2),
             rk[4].expand(B, -1).gather(1, fi)[..., None]], dim=-1)
 
-    def finish_sparse(self, scores, cls_pred, d2, d3, sfs):
-        """The sparse pre-NMS path over every anchor's outputs (shapes as
-        in `finish`); None when an image has more confident positions than
-        the budget, and the caller then takes the dense path. Deciding that
-        reads one flag per batch back to the host."""
+    def finish_sparse(self, idx, scores, cls_pred, d2, d3, sfs):
+        """The sparse pre-NMS path over the candidate anchors `idx` [B, M]
+        of `_compact_positions` (sentinel N) and every anchor's outputs
+        (shapes as in `finish`)."""
         B, N = scores.shape
-        idx, oks = _compact_positions(scores, self.A, self.sparse_thresh,
-                                      self.sparse_mpos)
-        if not bool(oks.all()):
-            return None
         # unused slots carry sentinel index N: gather any row, then fill
         hit = idx < N
         safe = torch.where(hit, idx, 0)
@@ -194,16 +194,22 @@ class _Decoder:
                            chans(d2), chans(d3), sfs,
                            bitmask=self.use_bitmask)
 
-    def __call__(self, out, sfs):
+    def forward(self, out, sfs):
         """Decode + NMS of the model outputs `out` of a batch."""
         scores, cls_pred = out["scores"], out["cls_pred"]
         d2, d3 = out["bbox_2d"], out["bbox_3d"]
-        if self.sparse_mpos:
-            dets = self.finish_sparse(scores, cls_pred, d2, d3, sfs)
-            if dets is not None:
-                return dets
-        return self.finish(scores, cls_pred, self.rois_t, self.src3d_t,
-                           d2, d3, sfs)
+
+        def dense(scores, cls_pred, d2, d3, sfs):
+            return self.finish(scores, cls_pred, self.rois_t, self.src3d_t,
+                               d2, d3, sfs)
+
+        if not self.sparse_mpos:
+            return dense(scores, cls_pred, d2, d3, sfs)
+        idx, oks = _compact_positions(scores, self.A, self.sparse_thresh,
+                                      self.sparse_mpos)
+        return cond(oks.all(),
+                    lambda *a: self.finish_sparse(idx, *a), dense,
+                    (scores, cls_pred, d2, d3, sfs))
 
 
 def make_batch_detector(conf, rois: np.ndarray, model, packed_input: bool = False,

@@ -14,7 +14,9 @@ Offsets are masked by `max anchor confidence > thresh`; elsewhere the DCN
 collapses to `mask * conv(x) + bias`. With a `SparseSel` the modules compute
 that dense base everywhere and correct it by the deformable gather at the
 (up to M) confident positions; when more than M positions are confident
-they run the full dense DCN instead. Exact in both regimes.
+they run the full dense DCN instead. Exact in both regimes. The choice is
+`ops/control.py:cond`: eager it reads the overflow flag back once per
+forward, under torch.export it is a `torch.cond` over both paths.
 
 Layouts: features x are NCHW (channels_last); the per-anchor confidence and
 regressions are [B, H, W, A]. The DCN mask is the soft max confidence.
@@ -32,13 +34,15 @@ import torch
 import torch.nn as nn
 
 from ..ops.compact import first_m_true
+from ..ops.control import cond
 from ..ops.dcn import bilinear_sample_rows, dcn_v2
 
 
 class SparseSel(NamedTuple):
     """Top-M confident-position selection shared by the align modules."""
     pos: Optional[torch.Tensor]  # [M] flat B*H*W indices; B*H*W = unused
-    ok: Optional[bool]           # every confident position fits in M
+    # every confident position fits in M: a one-element bool tensor
+    ok: Optional[torch.Tensor]
     mask: torch.Tensor           # [B,H,W,1] max anchor confidence
     ind: torch.Tensor            # [B,H,W] argmax anchor
 
@@ -50,7 +54,7 @@ def confident_topm(prob, thresh: float, m_per_image: int) -> SparseSel:
     mask, ind = torch.max(prob.detach(), dim=-1, keepdim=True)
     M = int(min(m_per_image * B, B * H * W))
     pos, ok = first_m_true((mask[..., 0] > thresh).reshape(-1), M)
-    return SparseSel(pos, bool(ok.item()), mask, ind[..., 0])
+    return SparseSel(pos, ok, mask, ind[..., 0])
 
 
 def _anchor_max(prob) -> SparseSel:
@@ -69,11 +73,10 @@ def _flat_coords(pos, B: int, H: int, W: int):
 
 def _scatter_rows(dense, pos, val):
     """dense [B*H*W, C] with rows `pos` replaced by `val`; sentinel
-    positions (>= B*H*W) are dropped."""
-    keep = pos < dense.shape[0]
-    out = dense.clone()
-    out[pos[keep]] = val[keep]
-    return out
+    positions (B*H*W) land in a spare row that is cut off."""
+    spare = dense.new_zeros((1, dense.shape[1]))
+    out = torch.cat([dense, spare]).index_copy(0, pos, val.to(dense.dtype))
+    return out[:-1]
 
 
 def _nhwc(x):
@@ -109,11 +112,13 @@ class ShapeAlign(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x, prob, sparse_sel: Optional[SparseSel] = None):
-        if sparse_sel is not None and sparse_sel.ok:
-            aligned = self._sparse_correct(self._base(x, sparse_sel), x,
-                                           sparse_sel)
-        else:
-            aligned = self._dense(x, sparse_sel or _anchor_max(prob))
+        if sparse_sel is None:
+            return self._dense(x, _anchor_max(prob)) + x
+        sel = sparse_sel
+        aligned = cond(sel.ok,
+                       lambda x: self._sparse_correct(self._base(x, sel), x,
+                                                      sel),
+                       lambda x: self._dense(x, sel), (x,))
         return aligned + x
 
     def _dense(self, x, sel: SparseSel):
@@ -190,11 +195,14 @@ class CenterAlign(nn.Module):
                 sparse_sel: Optional[SparseSel] = None):
         """bbox_x / bbox_y: per-anchor whitened delta predictions
         [B,H,W,A]."""
-        if sparse_sel is not None and sparse_sel.ok:
-            aligned = self._sparse_correct(self._base(x, sparse_sel), x,
-                                           bbox_x, bbox_y, sparse_sel)
-        else:
-            aligned = self._dense(x, bbox_x, bbox_y, prob)
+        if sparse_sel is None:
+            return self._dense(x, bbox_x, bbox_y, prob) + x
+        sel = sparse_sel
+        aligned = cond(sel.ok,
+                       lambda x, bx, by: self._sparse_correct(
+                           self._base(x, sel), x, bx, by, sel),
+                       lambda x, bx, by: self._dense(x, bx, by, prob),
+                       (x, bbox_x, bbox_y))
         return aligned + x
 
     def _offsets(self, bx, by, ind):

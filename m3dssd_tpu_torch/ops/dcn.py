@@ -13,9 +13,11 @@ per-corner bounds, then one [B*Ho*Wo, K*K*Cin] x [K*K*Cin, Cout] product.
 
 `dcn_v2_shift` is the bounded-offset op of the neck: offsets are clipped to
 +-clamp, so each tap's bilinear sample is a triangle-weighted sum of
-(2R+1)^2 statically shifted copies of the input (R = ceil(clamp)). On a CUDA
-tensor it launches the hand-written kernel (ops/dcn_cuda.py); on a CPU
-tensor it runs `dcn_v2_shift_reference`, the plain PyTorch form. Under
+(2R+1)^2 statically shifted copies of the input (R = ceil(clamp)). It calls
+the custom op `m3dssd::dcn_shift` (ops/dcn_op.py), which on a CUDA tensor
+launches the hand-written kernel (ops/dcn_cuda.py) and on a CPU tensor runs
+`dcn_v2_shift_reference`, the plain PyTorch form, and which `torch.export`
+traces as one call. Under
 autograd it runs as `DCNShiftFunction`, whose backward is the hand-written
 backward kernels on the card and `dcn_v2_shift_backward_reference` on the
 CPU: both follow the reference package's transpose and its subgradient
@@ -32,6 +34,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from .dcn_op import dcn_shift
 
 
 def _coord_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -357,10 +361,11 @@ class DCNShiftFunction(torch.autograd.Function):
     """Autograd of the shift DCN: the forward keeps only its inputs (x,
     offset, mask, weight) and the backward recomputes the columns.
 
-    On CUDA tensors the forward launches the forward kernel and the backward
-    the backward kernels (ops/dcn_cuda.py), each on detached operands; on
-    CPU tensors both run the plain versions. There is no other path: a
-    CUDA tensor reaches the kernels or raises.
+    The forward is the custom op `m3dssd::dcn_shift`: on CUDA tensors the
+    forward kernel, on CPU tensors the plain version. The backward launches
+    the backward kernels (ops/dcn_cuda.py) on detached operands, or on the
+    CPU runs the plain backward. There is no other path: a CUDA tensor
+    reaches the kernels or raises.
     """
 
     @staticmethod
@@ -368,16 +373,7 @@ class DCNShiftFunction(torch.autograd.Function):
         ctx.clamp = clamp
         ctx.bias_dtype = None if bias is None else bias.dtype
         ctx.save_for_backward(x, offset, mask, weight)
-        if x.is_cuda:
-            from .dcn_cuda import dcn_v2_shift_cuda
-
-            return dcn_v2_shift_cuda(
-                x.detach().contiguous(), offset.detach().contiguous(),
-                mask.detach().contiguous(), weight.detach().contiguous(),
-                None if bias is None else bias.detach().contiguous(),
-                clamp=clamp)
-        return dcn_v2_shift_reference(x, offset, mask, weight, bias,
-                                      clamp=clamp)
+        return dcn_shift(x, offset, mask, weight, bias, clamp)
 
     @staticmethod
     def backward(ctx, g):
@@ -405,11 +401,12 @@ def dcn_v2_shift(x, offset, mask, weight, bias=None, *, clamp: float = 1.0):
     """Deformable conv v2 with offsets clipped to [-clamp, clamp]
     (stride 1, dilation 1, padding K//2).
 
-    A CUDA tensor launches the hand-written kernel; a CPU tensor runs the
-    plain form. On the card the operands are brought to the kernel's types
-    here: offsets and mask in float32, weight in x's dtype, bias in
-    float32. When any operand requires grad (and grad is enabled) the call
-    goes through `DCNShiftFunction`.
+    Calls the custom op `m3dssd::dcn_shift`: a CUDA tensor launches the
+    hand-written kernel, a CPU tensor runs the plain form. On the card the
+    operands are brought to the kernel's types here: offsets and mask in
+    float32, weight in x's dtype, bias in float32. When any operand
+    requires grad (and grad is enabled) the call goes through
+    `DCNShiftFunction`.
     """
     if x.is_cuda:
         offset = offset.to(torch.float32)
@@ -423,11 +420,4 @@ def dcn_v2_shift(x, offset, mask, weight, bias=None, *, clamp: float = 1.0):
             for t in (x, offset, mask, weight, bias)):
         return DCNShiftFunction.apply(x, offset, mask, weight, bias,
                                       float(clamp))
-    if x.is_cuda:
-        from .dcn_cuda import dcn_v2_shift_cuda
-
-        return dcn_v2_shift_cuda(x.contiguous(), offset.contiguous(),
-                                 mask.contiguous(), weight.contiguous(),
-                                 None if bias is None else bias.contiguous(),
-                                 clamp=clamp)
-    return dcn_v2_shift_reference(x, offset, mask, weight, bias, clamp=clamp)
+    return dcn_shift(x, offset, mask, weight, bias, float(clamp))

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .compact import first_m_true
+from .control import fixpoint
 
 
 def nms_select_t(boxes_t, scores, iou_thresh: float, num_out: int,
@@ -29,7 +30,9 @@ def nms_select_t(boxes_t, scores, iou_thresh: float, num_out: int,
     stop_below: an image stops selecting once its best remaining score
     drops below it; its later slots come back valid=False with index 0.
     Without it every round records its argmax, valid while that score is
-    above -inf.
+    above -inf. All `num_out` rounds run, with no read-back: once a round
+    fails the threshold an image's scores no longer change, so each later
+    round fails it too.
 
     Returns (indices [B, num_out] int64, valid [B, num_out] bool), without
     the batch dimension when given [4, N] boxes.
@@ -55,8 +58,6 @@ def nms_select_t(boxes_t, scores, iou_thresh: float, num_out: int,
             idxs[:, k] = i[:, 0]
         else:
             ok = cur >= float(stop_below)
-            if not bool(ok.any()):
-                break
             idxs[:, k] = torch.where(ok[:, 0], i[:, 0], 0)
         valid[:, k] = ok[:, 0]
         xx1 = torch.maximum(x1.gather(1, i), x1)
@@ -85,7 +86,8 @@ def nms_bitmask_select_t(boxes_t, scores, iou_thresh: float, num_out: int):
     keep <- active & ~(overᵀ keep) from keep = active. The fixpoint is the
     greedy keep vector and is reached in suppression-chain-depth rounds;
     the B images iterate together until none changes (a converged image
-    stays where it is). Gives exactly the indices of `nms_select_t`
+    stays where it is; `ops/control.py:fixpoint`, a while_loop under
+    export). Gives exactly the indices of `nms_select_t`
     without `stop_below` on the same candidates; the [B, C, C] matrix is
     its memory cost.
 
@@ -115,15 +117,13 @@ def nms_bitmask_select_t(boxes_t, scores, iou_thresh: float, num_out: int):
     over = ((iou > iou_thresh) & tri & active[:, None, :]
             & active[:, :, None]).to(torch.float32)
 
-    keep = active
-    for _ in range(C):
+    def step(keep):
         # suppressed[i] = any kept j with over[j, i]; 0/1 sums are exact
         suppressed = torch.bmm(keep.to(torch.float32)[:, None, :],
                                over)[:, 0] > 0.0
-        new = active & ~suppressed
-        if torch.equal(new, keep):
-            break
-        keep = new
+        return active & ~suppressed
+
+    keep = fixpoint(step, active, C)
 
     pos, _ = first_m_true(keep, num_out)             # sentinel C when unused
     valid = pos < C

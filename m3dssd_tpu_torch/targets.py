@@ -6,9 +6,12 @@ The port's own copy of the reference package's `targets.py`:
   * build_targets   — the per-image target dict of `pre_compute_target`
                       training.
 
+  * build_gt_arrays — the padded per-image gts of the on-device
+                      assignment (`pre_compute_target=False`,
+                      ops/targets_device.py).
+
 These run in the loader's threads; the loss takes only the fixed-shape
-arrays they produce. (The reference's on-device assignment,
-`pre_compute_target=False`, is not ported.)
+arrays they produce.
 """
 
 from __future__ import annotations
@@ -55,6 +58,42 @@ def image_gt_arrays(conf, imobj, scale_factor=1.0, max_gt_h=None):
     box_lbls = np.array([cls_name_to_ind(conf.lbls, gt.cls)
                          for gt, v in zip(gts, val_m) if v], dtype=int)
     return gts_val, gts_ign, gts_3d, box_lbls
+
+
+def build_gt_arrays(conf, imobj, g_max: Optional[int] = None
+                    ) -> Dict[str, np.ndarray]:
+    """Padded per-image gt arrays for the on-device target path.
+
+    With `pre_compute_target=False` the batch carries only these (about
+    1 KB per image) and the train step assigns the targets on the card
+    (`ops/targets_device.py`), instead of the host's `build_targets` per
+    image and the upload of its dense [N] targets.
+
+    Returns gt_boxes2d [G,4] f32 (xyxy), gt_boxes3d [G,11] f32, gt_cls [G]
+    i32 (1-based), gt_valid [G] i8, ign_boxes [G,4] f32, ign_valid [G] i8,
+    truncated to `g_max` (conf.max_gts) valid/ignore boxes each.
+    """
+    G = int(conf.max_gts if g_max is None else g_max)
+    gts_val, gts_ign, gts_3d, box_lbls = image_gt_arrays(conf, imobj)
+    out = {
+        "gt_boxes2d": np.zeros([G, 4], np.float32),
+        "gt_boxes3d": np.zeros([G, 11], np.float32),
+        "gt_cls": np.zeros([G], np.int32),
+        "gt_valid": np.zeros([G], np.int8),
+        "ign_boxes": np.zeros([G, 4], np.float32),
+        "ign_valid": np.zeros([G], np.int8),
+    }
+    nv = min(gts_val.shape[0], G)
+    if nv:
+        out["gt_boxes2d"][:nv] = gts_val[:nv]
+        out["gt_boxes3d"][:nv] = gts_3d[:nv]
+        out["gt_cls"][:nv] = box_lbls[:nv]
+        out["gt_valid"][:nv] = 1
+    ni = min(gts_ign.shape[0], G)
+    if ni:
+        out["ign_boxes"][:ni] = gts_ign[:ni]
+        out["ign_valid"][:ni] = 1
+    return out
 
 
 def compute_targets(gts_val, gts_ign, box_lbls, rois, fg_thresh, ign_thresh,

@@ -198,8 +198,18 @@ def make_train_step(conf, rois: np.ndarray, packed_input: bool = False):
     moved to the model's device here. `generator` (on that device) draws the
     loss's random sampling when hard_negatives is off. Frozen layers'
     BatchNorm running statistics are put back after the forward.
+
+    With conf.pre_compute_target off, the batch carries padded gts
+    (`targets.build_gt_arrays` keys) instead of the targets, and the step
+    assigns the targets on the device before the forward
+    (`ops/targets_device.py`).
     """
     loss_cfg = RPNLossConfig.from_conf(conf)
+    target_fn = None
+    if not conf.pre_compute_target:
+        from ..ops.targets_device import make_device_target_fn
+
+        target_fn = make_device_target_fn(conf, rois)
     consts = {}
 
     def constants(dev):
@@ -223,6 +233,8 @@ def make_train_step(conf, rois: np.ndarray, packed_input: bool = False):
         batch = {k: (v.to(dev, non_blocking=True)
                      if isinstance(v, torch.Tensor) else v)
                  for k, v in batch.items()}
+        if target_fn is not None:
+            batch.update(target_fn(batch))
         pinned = {}
         if state.trainable is not None:
             pinned = {n: b.clone() for n, b in model.named_buffers()

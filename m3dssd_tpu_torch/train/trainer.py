@@ -5,9 +5,13 @@ The port's counterpart of the reference package's `train/trainer.py`, in
 one process on one device. `Trainer(conf, data_root, output_dir)` reads the
 KITTI-layout train and validation splits; `dataset=` / `val_dataset=` take
 in-memory splits instead (`data.synthetic.SyntheticTrainSet`,
-`SyntheticEvalSet`), for a machine without an image codec. Left out: the
-reference's import of torch checkpoints of the original model, video
-detection and the compilation cache.
+`SyntheticEvalSet`), for a machine without an image codec. At start the
+run directory gets the resolved config (`conf.pkl`) and a snapshot of the
+package source (`model_src/`, utils/source_snapshot.py). `conf.pretrained`
+names a seed checkpoint directory (weights only, fresh optimizer), a
+checkpoint directory of the port, or a .pth/.pkl checkpoint of the
+original model (utils/torch_import.py). Left out: video detection and the
+compilation cache.
 """
 
 from __future__ import annotations
@@ -25,11 +29,15 @@ from ..data.loader import TrainLoader
 from ..inference.detect import make_batch_detector, packed_input_eligible
 from ..inference.test_driver import test_kitti_3d
 from ..models import build
-from ..utils.checkpoint import (restore_checkpoint, save_checkpoint,
+from ..utils.checkpoint import (is_seed_checkpoint, restore_checkpoint,
+                                restore_seed, save_checkpoint,
                                 wait_for_saves)
 from ..utils.device import resolve_device
 from ..utils.logging_utils import (StatTracker, compute_eta, init_logging,
                                    pretty_print)
+from ..utils.source_snapshot import snapshot_source
+from ..utils.torch_import import (load_reference_checkpoint,
+                                  load_torch_file, pin_parity_conf)
 from .state import create_train_state, make_train_step
 
 
@@ -37,9 +45,16 @@ class Trainer:
     def __init__(self, conf, data_root: Optional[str], output_dir: str,
                  cache_folder: Optional[str] = None, timestamped: bool = False,
                  device=None, dataset=None, val_dataset=None):
-        self.conf = conf
         self.data_root = data_root
         self.device = resolve_device(device)
+        # a checkpoint of the original model with learned neck offsets
+        # pins the unbounded gather DCN, before the model is built and the
+        # conf is saved with the run
+        self._pretrained_sd = None
+        if conf.pretrained and not os.path.isdir(conf.pretrained):
+            self._pretrained_sd = load_torch_file(conf.pretrained)
+            conf = pin_parity_conf(conf, self._pretrained_sd)
+        self.conf = conf
         if timestamped:
             output_dir = os.path.join(output_dir,
                                       time.strftime("%Y%m%d_%H%M%S"))
@@ -61,6 +76,7 @@ class Trainer:
         self.steps_per_epoch = self.loader.steps_per_epoch
         self.max_iter = conf.max_epoch * self.steps_per_epoch
         conf.save(os.path.join(output_dir, "conf.pkl"))
+        snapshot_source(output_dir)
 
         self.model = build(conf, device=self.device, seed=conf.rng_seed,
                            phase="train")
@@ -70,12 +86,7 @@ class Trainer:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(conf.rng_seed)
         if conf.pretrained:
-            if not os.path.isdir(conf.pretrained):
-                raise NotImplementedError(
-                    "importing a torch checkpoint of the original model is "
-                    "not ported; conf.pretrained takes a port checkpoint "
-                    "directory")
-            restore_checkpoint(conf.pretrained, self.state)
+            self._load_pretrained(conf.pretrained)
 
         self.best_metric = -1.0
         self.val_dataset = val_dataset
@@ -83,6 +94,25 @@ class Trainer:
         self.writer = None
         self.last_stats = None
         self.last_eval = None
+
+    def _load_pretrained(self, path: str):
+        """Weights from `path`: a seed checkpoint directory (parameters and
+        BN statistics; the optimizer and step stay fresh), a checkpoint
+        directory (model, optimizer and step), or a checkpoint file of the
+        original model (matched by name and shape, the rest reported)."""
+        if os.path.isdir(path):
+            if is_seed_checkpoint(path):
+                restore_seed(path, self.model)
+            else:
+                restore_checkpoint(path, self.state)
+            return
+        conf = self.conf
+        block = "basic" if conf.back_bone == "dla34" else "bottleneck"
+        sd, _ = load_reference_checkpoint(
+            self.model, self._pretrained_sd,
+            num_anchors=conf.anchors.shape[0],
+            num_classes=conf.num_classes, block=block)
+        self.model.load_state_dict(sd, strict=True)
 
     def _gt_path(self) -> str:
         if hasattr(self.val_dataset, "write_labels"):

@@ -7,6 +7,11 @@ go on updating the state; with `async_save` the file write then runs on a
 background thread (one save in flight at a time) and `wait_for_saves`
 blocks until every write is on disk, as the reference package's async
 checkpointer does.
+
+A seed checkpoint (`save_seed`, `<ckpt_dir>/seed/seed.pt`) holds only the
+model's parameters and BatchNorm statistics, for a run that starts from
+trained weights with a fresh optimizer. `load_pretrained_params` copies
+the entries that match by name and shape and reports the rest.
 """
 
 from __future__ import annotations
@@ -107,3 +112,81 @@ def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None):
     state.step = int(payload["step"])
     logging.info("restored checkpoint %s", path)
     return state
+
+
+_SEED_FILE = "seed.pt"
+
+
+def save_seed(ckpt_dir: str, model) -> str:
+    """Save a seed checkpoint at `ckpt_dir/seed`: the model's parameters
+    and BatchNorm statistics only, no optimizer state and no step, so a
+    run with any solver can start from it. Returns that directory."""
+    path = os.path.join(os.path.abspath(ckpt_dir), "seed")
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, f".{_SEED_FILE}.{os.getpid()}.tmp")
+    torch.save({"model": _host(model.state_dict())}, tmp)
+    os.replace(tmp, os.path.join(path, _SEED_FILE))
+    logging.info("saved seed checkpoint %s", path)
+    return path
+
+
+def is_seed_checkpoint(ckpt_dir: str) -> bool:
+    return os.path.isdir(os.path.join(ckpt_dir, "seed"))
+
+
+def restore_seed(ckpt_dir: str, model):
+    """Load the seed checkpoint of `ckpt_dir` into `model` in place (the
+    caller's optimizer and step stay as they are) and return it."""
+    path = os.path.join(os.path.abspath(ckpt_dir), "seed", _SEED_FILE)
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    model.load_state_dict(payload["model"], strict=True)
+    logging.info("restored seed checkpoint %s", path)
+    return model
+
+
+def load_pretrained_params(state_dict, src_state_dict,
+                           filter_prefixes=None):
+    """Partial weight loading: a copy of `state_dict` with every entry of
+    `src_state_dict` of the same name and shape copied in (in the
+    destination's dtype); with `filter_prefixes`, only names starting with
+    one of them are taken. Returns (state dict, {"loaded": count,
+    "unmatched": [names with no source of that name and shape]})."""
+    out = dict(state_dict)
+    loaded, unmatched = 0, []
+    for name, dst in state_dict.items():
+        src = src_state_dict.get(name)
+        if src is None or tuple(src.shape) != tuple(dst.shape):
+            unmatched.append(name)
+            continue
+        if filter_prefixes and not any(name.startswith(p)
+                                       for p in filter_prefixes):
+            continue
+        out[name] = torch.as_tensor(src).to(dtype=dst.dtype,
+                                            device=dst.device)
+        loaded += 1
+    logging.info("loaded %d tensors; %d unmatched", loaded, len(unmatched))
+    return out, {"loaded": loaded, "unmatched": unmatched}
+
+
+def read_model_weights(ckpt_dir: str, step: Optional[int] = None):
+    """(model state dict, step) of the checkpoint of `step` (default: the
+    latest) of `ckpt_dir`, on the CPU: the float32 master weights and BN
+    statistics."""
+    if step is None:
+        step = latest_step(ckpt_dir)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {ckpt_dir}")
+    path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}", _FILE)
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    logging.info("read the weights of checkpoint %s", path)
+    return payload["model"], step
+
+
+def load_model_weights(model, ckpt_dir: str, step: Optional[int] = None
+                       ) -> int:
+    """Load the model weights of the checkpoint of `step` (default: the
+    latest) of `ckpt_dir` into `model`, a train or an eval build (float32
+    master weights are cast to the model's dtypes); returns the step."""
+    weights, step = read_model_weights(ckpt_dir, step)
+    model.load_state_dict(weights, strict=True)
+    return step

@@ -220,9 +220,11 @@ def test_unported_options_raise():
         Augmentation(conf.replace(distort_prob=0.5))
     with pytest.raises(NotImplementedError):
         SyntheticTrainSet(conf.replace(cluster_anchors=1), 2, seed=0, **IM)
+    # on-device targets are ported: the sample carries padded gts
     syn = SyntheticTrainSet(conf.replace(pre_compute_target=False), 2,
                             seed=0, **IM)
-    with pytest.raises(NotImplementedError):
-        syn.sample(0, rng=np.random.default_rng(0))
+    sample = syn.sample(0, rng=np.random.default_rng(0))
+    assert "target" not in sample
+    assert sample["gt"]["gt_boxes2d"].shape == (conf.max_gts, 4)
     assert locate_anchors(syn.conf.anchors, syn.conf.feat_size,
                           syn.conf.feat_stride).shape == syn.rois.shape
