@@ -20,9 +20,16 @@ with it, and drives a run directory's lifecycle: the train CLI's function
 from the run's source snapshot in a fresh process, the export CLI's
 function and `load_detector`, exported artifacts against eager detect in
 both align regimes, and a checkpoint in the original model's layout
-imported back under the pinned gather DCN. Every kernel's launch count is
-set to 0 before a main-path run and read after it; each phase prints its
-seconds. Any failed check ends the run
+imported back under the pinned gather DCN. Data parallelism runs its
+ranks in fresh processes: a train step of the flagship over two gloo ranks
+on the one card (each on its 4 rows of the global batch; NCCL refuses two
+ranks on one device) and over a one-rank NCCL group, in bf16 and in
+float32, against the one-process step, the group BatchNorm alone against
+the one-process BatchNorm at every BatchNorm shape of that step, and
+`test_kitti_3d` over the two ranks against the one-process driver's
+bytes. Every kernel's launch count
+is set to 0 before a main-path run and read after it (a rank process
+counts its own); each phase prints its seconds. Any failed check ends the run
 with a non-zero exit code.
 
 The last line of standard output is
@@ -499,10 +506,10 @@ def confident_cars(model, conf, batches, detect, target):
     return hi, per_image(hi)
 
 
-def eval_setup(device):
+def eval_setup(device, n=EVAL_IMAGES):
     """The eval run's inputs: the flagship (bf16, seeded random weights,
     perturbed neck offsets) at EVAL_CROP, an in-memory synthetic split of
-    EVAL_IMAGES images of EVAL_IM, its batches packed and on the card, and
+    `n` images of EVAL_IM, its batches packed and on the card, and
     a packed-input batch detector tuned by `confident_cars` to keep as
     many detections per image as the split has gt objects."""
     from types import SimpleNamespace
@@ -515,7 +522,7 @@ def eval_setup(device):
     from m3dssd_tpu_torch.models import build
 
     device = torch.device(device)
-    B, n = EVAL_BATCH, EVAL_IMAGES
+    B = EVAL_BATCH
     conf = flagship_conf(EVAL_CROP)
     data = SyntheticEvalSet(conf, n, seed=5, imW=EVAL_IM[1], imH=EVAL_IM[0])
     gt_per_image = sum(len(data.labels(i)) for i in range(n)) / n
@@ -639,7 +646,8 @@ def phase_eval(label, device="cuda"):
             d = os.path.join(tmp, f"loop{i}")
             os.makedirs(d)
             t0 = time.perf_counter()
-            drv._run_batched(data, detect, conf, d, B, ev.pack, ev.device)
+            drv._run_batched(data, detect, conf, drv.txt_writer(d), B,
+                             ev.pack, ev.device)
             loop_s.append(time.perf_counter() - t0)
             check(read_txts(d) == txts, "eval: a second run of the loop "
                   "wrote other bytes")
@@ -1798,6 +1806,462 @@ def phase_train_card_vs_cpu():
     return errs
 
 
+# --------------------------------------------------------------------------
+# data parallelism (parallel/): ranks in their own processes
+# --------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_EVAL_IMAGES = 32
+# steps of the one-rank NCCL process timed after its first (compared) one
+DP_TIMED_STEPS = 6
+# A data-parallel step (2 ranks x 4 rows over gloo, or 1 rank over NCCL)
+# against the one-process step on the same 8 rows from the same weights.
+# The ranks' convolutions see batches of 4, where cuDNN may sum in another
+# order, and the group BatchNorm runs torch's fused batch-norm kernels
+# with its own reductions where the one-process step calls cuDNN: the two
+# agree to rounding (DP_BN_TOL below). The bf16 step is not smooth at bf16
+# rounding's scale: the one-process step with about half of its input
+# moved by one ulp moves its updates by a median 0.88 of each tensor's own
+# and its BN statistics by 3.4e-2 of a tensor's largest, the one-rank NCCL
+# step by 0.55 and 2.2e-2 (PERF.md section 6). So the bf16 step is held by
+# its stats and BN statistics only, and the same step in float32 (TF32
+# off) by its updates too, where rounding is 2^-16 smaller: there the
+# one-process step repeated moves its updates by a median 6e-7, the
+# data-parallel ones by 1e-2 (the selections and kinks that flip under
+# float32 rounding, as profile_train_noise.py shows), while a gradient
+# left unreduced would move them by about half. Updates: the median over
+# tensors of each one's error against its own update, and the largest
+# error against the largest update. Each limit was set at about 3x the
+# largest reading of the first run (PERF.md section 6).
+DP_TOL = {torch.bfloat16: {"stats": 2.5e-2, "bn_stats": 6e-2},
+          torch.float32: {"stats": 5e-6, "bn_stats": 3e-4,
+                          "update_median": 3e-2, "update_largest": 5e-2}}
+# The group BatchNorm alone, on fixed operands at every BatchNorm shape of
+# the flagship's step (global batch TRAIN_BATCH), against the model's
+# one-process BatchNorm2d (cuDNN) on all rows: the output and dx (in the
+# input's dtype), the scale and bias gradients summed over the ranks and
+# the running statistics, each as max|diff| over the reference's largest
+# magnitude. Both sides compute in float32 and round once, so bf16 outputs
+# may flip by one ulp: the bf16 limit is two ulps (2^-7). The rows differ
+# in mean and scale, so a rank's own statistics are far from the global
+# ones and a missing reduction would show at order 1.
+DP_BN_TOL = {torch.bfloat16: {"y": 2.0 ** -7, "dx": 2.0 ** -7,
+                              "dweight": 1e-4, "dbias": 1e-4,
+                              "running_mean": 1e-5, "running_var": 1e-5},
+             torch.float32: {"y": 1e-5, "dx": 1e-5, "dweight": 1e-5,
+                             "dbias": 1e-5, "running_mean": 1e-5,
+                             "running_var": 1e-5}}
+
+
+def dp_step(conf, ds, batch, dev, group, path, bn_shapes=None):
+    """One train step of the flagship from the seed-0 weights on `batch`
+    (this rank's rows) under `group`, in conf.compute_dtype (float32 with
+    TF32 off); saves the model after it at `path`. Adds each BatchNorm's
+    input (C, H, W) to the set `bn_shapes` if given. Returns (stats, the
+    step, its train state, seconds)."""
+    from m3dssd_tpu_torch.models.layers import BatchNorm2d
+
+    from m3dssd_tpu_torch.models import build
+    from m3dssd_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+
+    def record(_module, args):
+        bn_shapes.add(tuple(args[0].shape[1:]))
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    if conf.compute_dtype == "float32":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    try:
+        model = build(conf, device=dev, seed=0, phase="train", group=group)
+        if bn_shapes is not None:
+            for m in model.modules():
+                if isinstance(m, BatchNorm2d):
+                    m.register_forward_pre_hook(record)
+        state = create_train_state(conf, model, max_iter=10 ** 6)
+        step = make_train_step(conf, ds.rois, packed_input=True,
+                               group=group)
+        stats, s = sync_s(lambda: step(state, batch))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    torch.save({k: v.detach().cpu() for k, v in model.state_dict().items()},
+               path)
+    return {k: float(v) for k, v in stats.items()}, step, state, s
+
+
+def dp_bn_check(mesh, shapes, dtype):
+    """The model's BatchNorm2d under the group on this rank's rows of a
+    global batch of TRAIN_BATCH against the same layer without a group on
+    all rows (cuDNN), forward and backward from the same seeded operands,
+    at each (C, H, W) of `shapes`. Returns each DP_BN_TOL quantity's
+    largest error over the shapes."""
+    from m3dssd_tpu_torch.models.layers import batch_norm
+
+    dev, B = mesh.device, TRAIN_BATCH
+    b = B // mesh.size
+    rows = slice(mesh.rank * b, (mesh.rank + 1) * b)
+    scale = torch.arange(1, B + 1, device=dev,
+                         dtype=torch.float32).view(B, 1, 1, 1)
+    worst = dict.fromkeys(DP_BN_TOL[dtype], 0.0)
+    for i, (C, H, W) in enumerate(sorted(shapes)):
+        g = torch.Generator(device=dev).manual_seed(100 + i)
+
+        def draw(offset):
+            return (torch.randn(B, C, H, W, generator=g, device=dev) * scale
+                    + offset).to(dtype).contiguous(
+                memory_format=torch.channels_last)
+
+        x, dy = draw(scale), draw(0.0)
+        w = torch.randn(C, generator=g, device=dev)
+        bias = torch.randn(C, generator=g, device=dev)
+        got, ref = {}, {}
+        for out, group, part in ((got, mesh.group, rows),
+                                 (ref, None, slice(None))):
+            bn = batch_norm(C).to(dev).train()
+            bn.process_group = group
+            with torch.no_grad():
+                bn.weight.copy_(w)
+                bn.bias.copy_(bias)
+            xi = x[part].detach().requires_grad_()
+            y = bn(xi)
+            y.backward(dy[part])
+            out.update(y=y.detach(), dx=xi.grad, dweight=bn.weight.grad,
+                       dbias=bn.bias.grad, running_mean=bn.running_mean,
+                       running_var=bn.running_var)
+        for k in ("dweight", "dbias"):
+            torch.distributed.all_reduce(got[k], group=mesh.group)
+        ref["y"], ref["dx"] = ref["y"][rows], ref["dx"][rows]
+        for k in worst:
+            r = ref[k].float()
+            e = float((got[k].float() - r).abs().max() / r.abs().max())
+            worst[k] = max(worst[k], e)
+        del x, dy, got, ref
+    return worst
+
+
+def dp_confs():
+    """The flagship's train configuration in bf16 (the main path) and in
+    float32, with the train split's anchors."""
+    conf = train_conf(TRAIN_CROP, TRAIN_BATCH).replace(warmup=0.0,
+                                                       lr=FIXED_LR)
+    ds = train_set(conf)
+    return ds, {torch.bfloat16: conf,
+                torch.float32: conf.replace(compute_dtype="float32")}
+
+
+def dp_rank(kind, rank, world, tmp):
+    """One rank of `phase_data_parallel`, run in a fresh process by it.
+
+    kind "gloo": one of DP_RANKS ranks in a gloo group on cuda:0 (NCCL
+    refuses two ranks on one device, "Duplicate GPU detected"; gloo moves
+    the CUDA tensors of all_reduce, broadcast and barrier through the
+    host): a train step of the flagship in bf16 and one in float32 on its
+    4 rows of the global batch (a sliced TrainLoader), the gradients'
+    all-reduce timed alone, `dp_bn_check` at the step's BatchNorm shapes
+    in both dtypes, then `test_kitti_3d` over DP_EVAL_IMAGES
+    images with the eval weights the parent saved. kind "nccl": a world of
+    1 through `init_distributed()` (NCCL, cuda:LOCAL_RANK): the same steps
+    and checks on all 8 rows, and DP_TIMED_STEPS more bf16 steps timed.
+    Writes its
+    models after the steps to `tmp` and prints one JSON line."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    sys.path.insert(0, ROOT)
+    from m3dssd_tpu_torch.anchors import locate_anchors
+    from m3dssd_tpu_torch.config import flagship_conf
+    from m3dssd_tpu_torch.data.loader import TrainLoader
+    from m3dssd_tpu_torch.data.synthetic import SyntheticEvalSet
+    from m3dssd_tpu_torch.inference.detect import make_batch_detector
+    from m3dssd_tpu_torch.inference.test_driver import test_kitti_3d
+    from m3dssd_tpu_torch.models import build
+    from m3dssd_tpu_torch.parallel import (all_reduce_grads,
+                                           init_distributed, make_mesh)
+
+    store = "file://" + os.path.join(tmp, f"{kind}.store")
+    if kind == "gloo":
+        init_distributed("gloo", device="cuda:0", init_method=store)
+        mesh = make_mesh(device="cuda:0")
+    else:
+        init_distributed(init_method=store)
+        mesh = make_mesh()
+    dev = mesh.device
+    ds, confs = dp_confs()
+    batch = next(TrainLoader(ds, TRAIN_BATCH, num_workers=8, seed=0,
+                             pack_s2d=True, process_index=mesh.rank,
+                             process_count=mesh.size).batches(1))
+    out = {"rank": mesh.rank, "device": str(dev),
+           "rows": int(batch["images"].shape[0]),
+           "backend": torch.distributed.get_backend()}
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    shapes = set()
+    stats, step, state, s = dp_step(
+        confs[torch.bfloat16], ds, batch, dev, mesh.group,
+        os.path.join(tmp, f"{kind}.bf16.rank{mesh.rank}.pt"), shapes)
+    out["stats"] = {"bf16": stats}
+    out["step_launches"] = bwd_counts()
+    out["reduced_bytes"] = step.reduced_bytes
+    out["first_step_ms"] = 1e3 * s
+    launches = bwd_counts()
+    if kind == "nccl":
+        times = []
+        for _ in range(DP_TIMED_STEPS):
+            reset_counts()
+            times.append(sync_s(lambda: step(state, batch))[1])
+            n = bwd_counts()
+            launches = {k: launches[k] + n[k] for k in launches}
+        out["step_ms"] = 1e3 * sorted(times[1:])[len(times[1:]) // 2]
+    else:
+        params = state.params()
+        grads = [torch.zeros_like(params[n]) for n in state.optimizer.names]
+        ms = []
+        for _ in range(3):
+            torch.distributed.barrier()
+            ms.append(1e3 * sync_s(lambda: all_reduce_grads(
+                grads, mesh.group))[1])
+        out["allreduce_ms"] = sorted(ms)[1]
+        del grads
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del step, state
+    torch.cuda.empty_cache()
+    reset_counts()
+    stats, _, _, _ = dp_step(
+        confs[torch.float32], ds, batch, dev, mesh.group,
+        os.path.join(tmp, f"{kind}.f32.rank{mesh.rank}.pt"))
+    out["stats"]["f32"] = stats
+    n = bwd_counts()
+    launches = {k: launches[k] + n[k] for k in launches}
+    torch.cuda.empty_cache()
+    out["bn_shapes"] = len(shapes)
+    out["bn"] = {key: dp_bn_check(mesh, shapes, dt)
+                 for key, dt in (("bf16", torch.bfloat16),
+                                 ("f32", torch.float32))}
+    torch.cuda.empty_cache()
+
+    if kind == "gloo":
+        econf = flagship_conf(EVAL_CROP)
+        val = SyntheticEvalSet(econf, DP_EVAL_IMAGES, seed=5,
+                               imW=EVAL_IM[1], imH=EVAL_IM[0])
+        emodel = build(econf, device=dev, seed=0)
+        emodel.load_state_dict(torch.load(os.path.join(tmp, "eval.pt"),
+                                          map_location=dev))
+        rois = locate_anchors(econf.anchors, econf.feat_size,
+                              econf.feat_stride)
+        detect = make_batch_detector(econf, rois, emodel, packed_input=True,
+                                     device=dev)
+        gt = os.path.join(tmp, "gt") if mesh.primary else None
+        reset_counts()
+        res, sel = test_kitti_3d(val, detect, econf,
+                                 os.path.join(tmp, "dp_results"),
+                                 gt_path=gt, batch_size=EVAL_BATCH,
+                                 packed_input=True, mesh=mesh)
+        out["eval_launches"] = bwd_counts()["forward"]
+        launches["forward"] += out["eval_launches"]
+        out["sel"] = sel
+        out["res_is_none"] = res is None
+    out["launches"] = launches
+    torch.distributed.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def start_rank(kind, rank, world, tmp):
+    return start_py(f"import sys; sys.path.insert(0, {ROOT!r}); "
+                    f"import chip_smoke; chip_smoke.dp_rank({kind!r}, "
+                    f"{rank}, {world}, {tmp!r})")
+
+
+def phase_data_parallel(label, single_ms):
+    """Data parallelism on the card, each rank in a fresh process: a step
+    of the flagship (384x1280, global bs=8, bf16, packed; then float32)
+    over DP_RANKS gloo ranks on cuda:0, each on its 4 rows from a sliced
+    TrainLoader, against the one-process step on the 8 rows (and that
+    step repeated, and with its input moved by one ulp: the step's own
+    spread); the same steps in a one-rank NCCL group through
+    `init_distributed()`; the group BatchNorm alone in every rank; and
+    `test_kitti_3d` over the DP_RANKS ranks on DP_EVAL_IMAGES images
+    against the one-process driver's bytes. Returns the kernels' launches,
+    summed over the ranks."""
+    import tempfile
+    from types import SimpleNamespace
+
+    from m3dssd_tpu_torch.data.loader import TrainLoader
+    from m3dssd_tpu_torch.inference import test_driver as drv
+    from m3dssd_tpu_torch.models import build
+    from m3dssd_tpu_torch.parallel import shard_batch
+
+    B = TRAIN_BATCH
+    ds, confs = dp_confs()
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        ev = eval_setup("cuda", DP_EVAL_IMAGES)
+        torch.save(ev.model.state_dict(), os.path.join(tmp, "eval.pt"))
+        ev.data.write_labels(os.path.join(tmp, "gt"))
+        procs = [start_rank("gloo", r, DP_RANKS, tmp)
+                 for r in range(DP_RANKS)]
+
+        # meanwhile, the references in this process: the sliced loader's
+        # rows, the one-process steps (the float32 one twice: its own
+        # spread) and the one-process eval
+        whole = next(TrainLoader(ds, B, num_workers=8, seed=0,
+                                 pack_s2d=True).batches(1))
+        for r in range(DP_RANKS):
+            part = next(TrainLoader(ds, B, num_workers=8, seed=0,
+                                    pack_s2d=True, process_index=r,
+                                    process_count=DP_RANKS).batches(1))
+            want = shard_batch(SimpleNamespace(rank=r, size=DP_RANKS),
+                               whole)
+            check(all(torch.equal(part[k], want[k]) for k in want),
+                  f"data parallel: rank {r}'s loader rows differ from the "
+                  "one-process batch's")
+        model = build(confs[torch.bfloat16], device="cpu", seed=0,
+                      phase="train")
+        init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        names = [n for n, _ in model.named_parameters()]
+        del model
+        # a witness of the bf16 step's own sensitivity: the same step with
+        # about half of the input's elements moved by one bf16 ulp
+        bits = whole["images"].view(torch.int16)
+        moved = dict(whole, images=(bits + torch.randint(
+            0, 2, bits.shape, generator=torch.Generator().manual_seed(11),
+            dtype=torch.int16)).view(torch.bfloat16))
+        single = {}
+        for key, dt, batch in (("bf16", torch.bfloat16, whole),
+                               ("bf16_again", torch.bfloat16, whole),
+                               ("bf16_ulp", torch.bfloat16, moved),
+                               ("f32", torch.float32, whole),
+                               ("f32_again", torch.float32, whole)):
+            single[key] = dp_step(confs[dt], ds, batch, dev, None,
+                                  os.path.join(tmp, f"one.{key}.pt"))[0]
+            torch.cuda.empty_cache()
+        one = os.path.join(tmp, "one_process")
+        _, one_sel = drv.test_kitti_3d(ev.data, ev.detect, ev.conf, one,
+                                       gt_path=os.path.join(tmp, "gt"),
+                                       batch_size=EVAL_BATCH,
+                                       packed_input=True)
+        del ev
+        torch.cuda.empty_cache()
+        ranks = sorted((finish_py(p) for p in procs),
+                       key=lambda o: o["rank"])
+        # the one-rank NCCL steps alone on the card, for their time
+        nccl = finish_py(start_rank("nccl", 0, 1, tmp))
+
+        def load(name):
+            return torch.load(os.path.join(tmp, name))
+
+        def errors(got, ref, ref_stats, stats):
+            own, largest = update_errors(got, init, ref, names)
+            vals = sorted(own.values())
+            bn = max(float((got[n].double() - ref[n].double()).abs().max()
+                           / ref[n].double().abs().max().clamp(min=1e-12))
+                     for n in ref if n.endswith(("running_mean",
+                                                 "running_var")))
+            return {"stats": max(abs(stats[k] - v) / max(abs(v), 1e-6)
+                                 for k, v in ref_stats.items()),
+                    "bn_stats": bn, "update_median": vals[len(vals) // 2],
+                    "update_largest": largest}
+
+        errs = {}
+        for dt, key in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            ref = load(f"one.{key}.pt")
+            g0, g1 = load(f"gloo.{key}.rank0.pt"), load(
+                f"gloo.{key}.rank1.pt")
+            check(g0.keys() == g1.keys() and all(torch.equal(g0[k], g1[k])
+                                                  for k in g0),
+                  f"data parallel {key}: the two ranks' models differ")
+            errs["gloo", key] = errors(g0, ref, single[key],
+                                       ranks[0]["stats"][key])
+            del g0, g1
+            errs["nccl", key] = errors(load(f"nccl.{key}.rank0.pt"), ref,
+                                       single[key], nccl["stats"][key])
+        for who, key, base in (("again", "f32_again", "f32"),
+                               ("again", "bf16_again", "bf16"),
+                               ("ulp", "bf16_ulp", "bf16")):
+            errs[who, key] = errors(load(f"one.{key}.pt"),
+                                    load(f"one.{base}.pt"), single[base],
+                                    single[key])
+        txt_one = read_txts(one)
+        txt_dp = read_txts(os.path.join(tmp, "dp_results"))
+
+    log(f"data parallel, flagship {TRAIN_CROP[0]}x{TRAIN_CROP[1]} global "
+        f"bs={B} packed ({label}): {DP_RANKS} gloo ranks on cuda:0 x "
+        f"{B // DP_RANKS} rows, bf16 loss {ranks[0]['stats']['bf16']['loss']:.6f}"
+        f" on both (one process {single['bf16']['loss']:.6f}); against the "
+        "one-process step (each step from the same weights):")
+    for (who, key), e in errs.items():
+        log(f"  {who} {key}: " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in e.items()))
+    log(f"  gradient bytes all-reduced per step {ranks[0]['reduced_bytes']}"
+        f" ({ranks[0]['reduced_bytes'] / 2 ** 20:.1f} MiB); gloo all-reduce"
+        f" of them alone (through the host, not a training cost) "
+        + ", ".join(f"rank {o['rank']} {o['allreduce_ms']:.2f} ms"
+                    for o in ranks)
+        + "; first bf16 step " + ", ".join(f"{o['first_step_ms']:.1f}"
+                                           for o in ranks) + " ms")
+    log("  (again: the one-process step repeated; ulp: the one-process "
+        "bf16 step with about half of its input moved by one ulp, a "
+        "witness of the step's own sensitivity; neither is checked)")
+    for o in ranks + [nccl]:
+        for key, e in o["bn"].items():
+            log(f"  group BatchNorm alone, {o['backend']} rank {o['rank']} "
+                f"({o['rows']} rows), {key}, {o['bn_shapes']} shapes, "
+                "against one-process BatchNorm2d: " + ", ".join(
+                    f"{k} {v:.3e}" for k, v in e.items()))
+    log("  per rank: launches " + "; ".join(
+        f"rank {o['rank']} {o['launches']}, peak {o['peak_gib']:.2f} GiB"
+        for o in ranks))
+    log(f"  one-rank NCCL group (init_distributed): bf16 "
+        f"{nccl['step_ms']:.2f} ms per step (median of "
+        f"{DP_TIMED_STEPS - 1} warm) against phase_train's {single_ms:.2f}"
+        f" ms; peak {nccl['peak_gib']:.2f} GiB; launches "
+        f"{nccl['launches']}")
+    log(f"  test_kitti_3d over {DP_RANKS} gloo ranks, {DP_EVAL_IMAGES} "
+        f"images bs={EVAL_BATCH}: rank 0 wrote {len(txt_dp)} txts, the "
+        f"one-process driver {len(txt_one)}; metric "
+        + ", ".join(str(o["sel"]) for o in ranks) + f" (one process "
+        f"{one_sel})")
+    for o in ranks:
+        for key in ("bf16", "f32"):
+            check(o["stats"][key] == ranks[0]["stats"][key], "data "
+                  f"parallel {key}: the ranks report other stats")
+        check(o["rows"] == B // DP_RANKS, f"rank {o['rank']}: {o['rows']}"
+              " rows")
+        check(all(v == 8 for v in o["step_launches"].values()),
+              f"rank {o['rank']}: step launched {o['step_launches']}")
+        check(o["eval_launches"] == 8 * 2, f"rank {o['rank']}: eval "
+              f"launched {o['eval_launches']}")
+        check(o["sel"] == one_sel, f"rank {o['rank']}: metric {o['sel']} "
+              f"against the one process's {one_sel}")
+    check(not ranks[0]["res_is_none"] and ranks[1]["res_is_none"],
+          "data parallel eval: the AP dict off rank 0")
+    check(nccl["backend"] == "nccl" and nccl["rows"] == B
+          and all(v == 8 for v in nccl["step_launches"].values()),
+          f"NCCL rank: {nccl}")
+    check(len(txt_one) == DP_EVAL_IMAGES and txt_dp == txt_one,
+          "data parallel eval: rank 0's txts differ from the one "
+          "process's")
+    for o in ranks + [nccl]:
+        check(o["bn_shapes"] > 0, f"rank {o['rank']}: no BatchNorm shapes")
+        for key, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            for k, lim in DP_BN_TOL[dt].items():
+                check(o["bn"][key][k] <= lim, f"group BatchNorm "
+                      f"({o['backend']} rank {o['rank']}, {key}) against "
+                      f"BatchNorm2d: {k} error {o['bn'][key][k]} above {lim}")
+    for (who, key), e in errs.items():
+        if who in ("again", "ulp"):
+            continue
+        for k, lim in DP_TOL[torch.bfloat16 if key == "bf16"
+                             else torch.float32].items():
+            check(e[k] <= lim, f"data parallel ({who}, {key}) against one "
+                  f"process: {k} error {e[k]} above {lim}")
+    total = dict.fromkeys(("forward",) + BWD_KERNELS, 0)
+    for o in ranks + [nccl]:
+        for k in total:
+            total[k] += o["launches"][k]
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -1838,18 +2302,20 @@ def main() -> int:
     timed(phase_card_vs_cpu)
     fwd["eval"] = timed(phase_eval, label)
     train_launches, train_stats = timed(phase_train, label)
+    dp_launches = timed(phase_data_parallel, label, train_stats["step_ms"])
     timed(phase_train_card_vs_cpu)
     dt_launches = timed(phase_train_device_targets, label,
                         train_stats["step_ms"])
     life_launches = timed(phase_run_lifecycle, label)
     timed(phase_upstream, label)
-    for name, n in (("train", train_launches), ("device_targets",
-                                                dt_launches),
+    bwd = {k: {} for k in BWD_KERNELS}
+    for name, n in (("train", train_launches), ("data_parallel",
+                                                dp_launches),
+                    ("device_targets", dt_launches),
                     ("lifecycle", life_launches)):
         fwd[name] = n["forward"]
-        if name != "train":
-            for k in BWD_KERNELS:
-                train_launches[k] += n[k]
+        for k in BWD_KERNELS:
+            bwd[k][name] = n[k]
     launches = sum(fwd.values())
     log("forward kernel launches (through m3dssd::dcn_shift) per phase: "
         + ", ".join(f"{k} {v}" for k, v in fwd.items()))
@@ -1883,13 +2349,14 @@ def main() -> int:
             "route": "cuda",
             "source": "m3dssd_tpu_torch/csrc/dcn_shift_bwd.cu",
             "replaces": "m3dssd_tpu/ops/dcn.py:382",
-            "launches": train_launches[k],
+            "launches": sum(bwd[k].values()),
             "max_abs_err": bwd_err[k],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": ("bytes" if t["bytes_ms"] > t["ops_ms"]
                          else "operations"),
+            "launches_by_phase": bwd[k],
             "library_ms": None,
             "products_ms": prod_ms,
         })

@@ -1,13 +1,15 @@
 """Host input pipeline of training: weighted sampling, threaded prefetch and
 batching into pinned torch tensors.
 
-The port's counterpart of the reference package's `data/loader.py` (its
-multi-host slicing is left out). Per-sample work (decode, augment, anchor
-targets) runs in a thread pool, the numpy parts release the GIL, and
-finished batches wait in a bounded queue, so host preparation overlaps the
-device's steps. Each sample's augmentation draws from its own numpy
+The port's counterpart of the reference package's `data/loader.py`.
+Per-sample work (decode, augment, anchor targets) runs in a thread pool,
+the numpy parts release the GIL, and finished batches wait in a bounded
+queue, so host preparation overlaps the device's steps. Each sample's augmentation draws from its own numpy
 Generator seeded by (seed, draw, slot), so batches do not depend on which
-thread ran first.
+thread ran first. Under data parallelism (`process_count` > 1) every
+process draws the same global indices and decodes only its own rows,
+seeded by their global slots, so its batch is bit-equal to those rows of
+the single-process batch.
 """
 
 from __future__ import annotations
@@ -81,16 +83,24 @@ class TrainLoader:
     present, so `train_step` uploads them without blocking). With
     `pack_s2d` the images are space-to-depth packed ([B,H/2,W/2,12]); with
     `upload_bf16` (default: conf.compute_dtype is bfloat16) they are cast to
-    bfloat16, which the model would do on the card anyway.
+    bfloat16, which the model would do on the card anyway. `batch_size` is
+    the global batch; with `process_count` > 1 this process yields rows
+    [p B/n, (p+1) B/n) of it (p = `process_index`).
     """
 
     def __init__(self, dataset, batch_size: int, num_workers: int = 8,
                  seed: int = 0, prefetch: int = 4,
                  weights: Optional[np.ndarray] = None,
                  pack_s2d: bool = False, upload_bf16: Optional[bool] = None,
-                 pin: Optional[bool] = None):
+                 pin: Optional[bool] = None, process_index: int = 0,
+                 process_count: int = 1):
+        if batch_size % process_count:
+            raise ValueError(f"a global batch of {batch_size} over "
+                             f"{process_count} processes")
         self.dataset = dataset
         self.batch_size = batch_size
+        self.local_batch = batch_size // process_count
+        self.row0 = process_index * self.local_batch
         self.seed = seed
         self.rng = np.random.default_rng(seed)
         self._draws = 0     # batch draws so far, keys the per-sample rngs
@@ -135,9 +145,11 @@ class TrainLoader:
                         idx = self._sample_indices()
                         draw = self._draws
                         self._draws += 1
-                        args = [(int(i), np.random.default_rng((self.seed,
-                                                                draw, s)))
-                                for s, i in enumerate(idx)]
+                        lo = self.row0
+                        args = [(int(i), np.random.default_rng(
+                            (self.seed, draw, lo + s)))
+                            for s, i in enumerate(
+                                idx[lo:lo + self.local_batch])]
                         samples = list(pool.map(
                             lambda a: self.dataset.sample(a[0], rng=a[1]),
                             args))

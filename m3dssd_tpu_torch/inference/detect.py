@@ -219,7 +219,9 @@ def make_batch_detector(conf, rois: np.ndarray, model, packed_input: bool = Fals
     images [B, H, W, 3] preprocessed (or, with `packed_input`, their
     space-to-depth packing [B, H/2, W/2, 12]); scale_factors [B]. Runs on
     the card unless `device` names another device; the model is moved
-    there, and `detect.device` names it.
+    there, and `detect.device` names it. It takes no mesh: under data
+    parallelism every rank runs its own detector on whole batches
+    (`test_driver.test_kitti_3d(mesh=...)` deals the batches out).
     """
     dev = resolve_device(device)
     model = model.to(dev).eval()

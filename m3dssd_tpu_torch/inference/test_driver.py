@@ -6,6 +6,11 @@ ray -> hill-climb refinement of depth and yaw -> bottom-center restore ->
 one KITTI result line per detection. Images are read and packed on
 prefetch threads, uploaded from pinned memory, and detected a batch at a
 time; the main thread then post-processes and writes each batch.
+
+Over a data axis of W processes (`parallel.make_mesh`) rank r detects and
+post-processes batches k = r, r + W, ... of the single-process loop (the
+same batches, so the same launch plans), sends its rows to rank 0, and
+rank 0 alone writes the txts and computes AP.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from .. import geometry as geo
+from ..parallel.mesh import broadcast_one_to_all, gather_to_primary
 from .hill_climb import hill_climb
 
 
@@ -99,18 +105,31 @@ def _packer(conf, packed_input: bool, pin: bool):
     return pack
 
 
-def _run_batched(dataset, detect, conf, results_path: str, batch_size: int,
-                 pack, device: torch.device, prefetch_workers: int = 8):
-    """The eval loop. Prefetch threads read and pack images; the main
-    thread uploads each batch (tail padded by repeating its last image;
-    the padding's rows are dropped), detects, brings the [B, K, 14] table
-    to the host, post-processes it and writes its files.
+def txt_writer(results_path: str):
+    """`emit(image_id, rows)` writing the image's KITTI result txt into
+    `results_path`."""
+    def emit(image_id, dets_rows):
+        write_kitti_result(os.path.join(results_path, image_id + ".txt"),
+                           dets_rows)
+    return emit
+
+
+def _run_batched(dataset, detect, conf, emit, batch_size: int, pack,
+                 device: torch.device, prefetch_workers: int = 8,
+                 rank: int = 0, size: int = 1):
+    """The eval loop over batches rank, rank + size, ... of `batch_size`
+    images. Prefetch threads read and pack images; the main thread uploads
+    each batch (tail padded by repeating its last image; the padding's
+    rows are dropped), detects, brings the [B, K, 14] table to the host,
+    post-processes it and passes each image's rows to `emit(id, rows)`.
 
     The post-process stays on the main thread: on the H100 a worker thread
     that post-processes batch k while batch k+1 is detected measured slower
     (PERF.md), since both hold the interpreter lock."""
     n = len(dataset)
     B = max(int(batch_size), 1)
+    starts = range(rank * B, n, size * B)
+    order = [i for s in starts for i in range(s, min(s + B, n))]
 
     def load(i):
         s = dataset[i]
@@ -119,14 +138,14 @@ def _run_batched(dataset, detect, conf, results_path: str, batch_size: int,
     with ThreadPoolExecutor(max_workers=prefetch_workers) as pool:
         # at most ~2 batches of loaded images in flight
         window = max(2 * B, prefetch_workers + 1)
-        futures = deque(pool.submit(load, i) for i in range(min(window, n)))
+        futures = deque(pool.submit(load, i) for i in order[:window])
         next_i = len(futures)
-        for start in range(0, n, B):
+        for start in starts:
             ims, sfs, metas = [], [], []
             for _ in range(min(B, n - start)):
                 im, sf, meta = futures.popleft().result()
-                if next_i < n:
-                    futures.append(pool.submit(load, next_i))
+                if next_i < len(order):
+                    futures.append(pool.submit(load, order[next_i]))
                     next_i += 1
                 ims.append(im)
                 sfs.append(sf)
@@ -141,15 +160,14 @@ def _run_batched(dataset, detect, conf, results_path: str, batch_size: int,
             dets = detect(imb, sfb)
             arr = dets.reshape(B, -1, dets.shape[-1]).cpu().numpy()
             for j, meta in enumerate(metas):
-                rows = postprocess_dets(conf, arr[j], meta["p2"],
-                                        np.linalg.inv(meta["p2"]))
-                write_kitti_result(
-                    os.path.join(results_path, meta["id"] + ".txt"), rows)
+                emit(meta["id"], postprocess_dets(conf, arr[j], meta["p2"],
+                                                  np.linalg.inv(meta["p2"])))
 
 
 def test_kitti_3d(dataset, detect, conf, results_path: str,
                   gt_path: Optional[str] = None, evaluate: bool = True,
-                  batch_size: int = 1, packed_input: bool = False):
+                  batch_size: int = 1, packed_input: bool = False,
+                  mesh=None):
     """Run `detect` over `dataset` (an eval split: `dataset[i]` ->
     {"input", "meta"}), write one KITTI result txt per image into
     `results_path`, and with `evaluate` and `gt_path` compute AP against
@@ -159,25 +177,42 @@ def test_kitti_3d(dataset, detect, conf, results_path: str,
     or `make_detector` for batch_size 1); it runs on its own device
     (`detect.device`, the CPU when it has none). `packed_input`: the
     detector was built with packed_input=True, so images go up
-    space-to-depth packed. A bf16 model gets bf16 images. Runs in one
-    process.
+    space-to-depth packed. A bf16 model gets bf16 images.
+
+    `mesh`: a data axis (`parallel.make_mesh`) every rank of which calls
+    this with the same split and its own detector. Rank r runs batches
+    r, r + W, ...; rank 0 gathers every rank's rows (as host objects),
+    writes the txts and computes AP, and then broadcasts the selection
+    metric, so every rank returns the same one (and takes the same
+    best-model branch in the Trainer); the results dict stays None off
+    rank 0.
 
     Returns (results dict or None, mean Car 3D AP-R40).
     """
-    os.makedirs(results_path, exist_ok=True)
+    primary = mesh is None or mesh.primary
+    if primary:
+        os.makedirs(results_path, exist_ok=True)
     device = torch.device(getattr(detect, "device", "cpu"))
     pack = _packer(conf, packed_input, pin=device.type == "cuda")
+    write = txt_writer(results_path)
     t0 = time.time()
-    _run_batched(dataset, detect, conf, results_path, batch_size, pack,
-                 device)
+    if mesh is None:
+        _run_batched(dataset, detect, conf, write, batch_size, pack, device)
+    else:
+        rows = {}
+        _run_batched(dataset, detect, conf, rows.__setitem__, batch_size,
+                     pack, device, rank=mesh.rank, size=mesh.size)
+        for part in gather_to_primary(rows, mesh) or ():
+            for image_id, dets_rows in part.items():
+                write(image_id, dets_rows)
     dt = time.time() - t0
     n = len(dataset)
     logging.info("test_kitti_3d: %d images in %.1fs (%.2f im/s)", n, dt,
                  n / max(dt, 1e-9))
 
     res, sel = None, 0.0
-    if evaluate and gt_path:
+    if primary and evaluate and gt_path:
         from ..eval.kitti_eval import evaluate_kitti
         res = evaluate_kitti(gt_path, results_path, classes=conf.lbls)
         sel = float(np.mean(res.get("Car_3d_R40", [0.0, 0.0, 0.0])))
-    return res, sel
+    return res, broadcast_one_to_all(sel, mesh)

@@ -16,9 +16,16 @@ The port's copy of the reference package's `losses/rpn_loss.py`
   * optional focal down-weighting (1 - p)^gamma and the 2D SmoothL1 branch.
 
 Everything is a fixed-shape tensor op: no host sync, so the stats stay on
-the device until a caller reads them. The 3D-projection and 3D-IoU branches
-(`bbox_3d_proj_lambda`, `bbox_3d_iou_lambda`, 0 in every stock config) are
-not ported and raise.
+the device until a caller reads them. The 3D-projection and 3D-IoU
+branches (`bbox_3d_proj_lambda`, `bbox_3d_iou_lambda`, 0 in every stock
+config) are not ported and raise.
+
+Under a data axis (`group`, `parallel/mesh.py`) each rank holds its rows of
+the global batch. The batch-wide counts (fg_total, bg_total) and the
+denominator of every mean are then the global batch's, summed over the
+ranks by one all_reduce outside autograd, so each rank's loss is its
+share of the global loss and the ranks' gradients sum to its gradient.
+The stats are summed the same way: every rank reports the global ones.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from ..ops.boxes import (bbox_transform_inv_t, clip, decode_bbox_3d_t,
                          iou_list_t, masked_mean, smooth_l1)
@@ -124,7 +132,7 @@ def rpn_3d_loss(outputs: Dict[str, torch.Tensor],
                 batch: Dict[str, torch.Tensor], rois: torch.Tensor,
                 anchors: torch.Tensor, bbox_means: torch.Tensor,
                 bbox_stds: torch.Tensor, cfg: RPNLossConfig,
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, group=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The total detection loss and a dict of detached stats.
 
@@ -132,7 +140,10 @@ def rpn_3d_loss(outputs: Dict[str, torch.Tensor],
     [B,4,N]; bbox_3d [B,7,N]). batch: labels [B,N] (IGN_FLAG ignored),
     labels_fg/bg/ign [B,N], bbox_2d [B,4,N] and bbox_3d [B,7,N] whitened
     targets, any_val [B]. rois [N,5]; anchors [A,9]; bbox_means/stds [1,11].
-    `generator` draws the random sampling scores when hard_negatives is off.
+    `generator` draws the random sampling scores when hard_negatives is off:
+    under `group` it draws the global batch's scores (the same generator
+    state on every rank) and takes this rank's rows, so the sampling does
+    not depend on the split.
     """
     if cfg.bbox_3d_proj_lambda or cfg.bbox_3d_iou_lambda:
         raise NotImplementedError(
@@ -174,14 +185,24 @@ def rpn_3d_loss(outputs: Dict[str, torch.Tensor],
         if generator is None:
             raise ValueError("random sampling (hard_negatives off) needs a "
                              "generator")
-        sel_score = torch.rand(score.shape, generator=generator,
-                               device=dev)
+        W, r = (1, 0) if group is None else (dist.get_world_size(group),
+                                             dist.get_rank(group))
+        sel_score = torch.rand((W * B, N), generator=generator,
+                               device=dev)[r * B:(r + 1) * B]
     sel_fg, sel_bg = rank_select_pools(sel_score, [is_fg, is_bg],
                                        [fg_num, bg_num])
     sel_fg = sel_fg & participates[:, None]
     sel_bg = sel_bg & participates[:, None]
-    fg_total = sel_fg.sum()
-    bg_total = sel_bg.sum()
+    active = sel_fg | sel_bg
+    lab_fg_all = (labels > 0) & (labels != IGN_FLAG)
+    # the batch-wide counts: every denominator below is one of them
+    counts = torch.stack([sel_fg.sum(), sel_bg.sum(), active.sum(),
+                          lab_fg_all.sum(), (labels == 0).sum()])
+    if group is not None:
+        dist.all_reduce(counts, group=group)
+    fg_total, bg_total = counts[0], counts[1]
+    n_active, n_lab_fg, n_lab_bg = counts[2:].to(f32).unbind()
+    n_fg_sel = fg_total.to(f32)
 
     fg_w = torch.where(
         fg_total > 0,
@@ -192,7 +213,6 @@ def rpn_3d_loss(outputs: Dict[str, torch.Tensor],
     if cfg.focal_loss:
         labels_weight = labels_weight * (1.0 - score) ** cfg.focal_loss
 
-    active = sel_fg | sel_bg
     stats: Dict[str, torch.Tensor] = {}
     loss = torch.zeros((), dtype=f32, device=dev)
 
@@ -201,16 +221,16 @@ def rpn_3d_loss(outputs: Dict[str, torch.Tensor],
         # -log_softmax[lbl] == lse - logit[lbl]
         ce = lse - take_class_t(cls_t, lbl_for_score)
         ce = clip(ce * labels_weight, 0.0, 2000.0)
-        loss_cls = masked_mean(ce, active) * cfg.cls_2d_lambda
+        loss_cls = masked_mean(ce, active, n_active) * cfg.cls_2d_lambda
         loss = loss + loss_cls
         stats["loss_cls"] = loss_cls
 
     if not cfg.light_stats:
         cls_pred = argmax_class_t(cls_t)
-        lab_fg_all = (labels > 0) & (labels != IGN_FLAG)
         stats["acc_fg"] = masked_mean((cls_pred == labels).to(f32),
-                                      lab_fg_all)
-        stats["acc_bg"] = masked_mean((cls_pred == 0).to(f32), labels == 0)
+                                      lab_fg_all, n_lab_fg)
+        stats["acc_bg"] = masked_mean((cls_pred == 0).to(f32), labels == 0,
+                                      n_lab_bg)
 
     # --------------------------------------------------------- box losses
     bbox_weights = sel_fg.to(f32)
@@ -220,7 +240,8 @@ def rpn_3d_loss(outputs: Dict[str, torch.Tensor],
         if not lam:
             continue
         l1 = smooth_l1(pred, batch[tkey].to(f32))
-        per_param = torch.stack([masked_mean(l1[:, p], bbox_weights)
+        per_param = torch.stack([masked_mean(l1[:, p], bbox_weights,
+                                             n_fg_sel)
                                  for p in range(l1.shape[1])])
         term = per_param.sum() * lam
         loss = loss + term
@@ -232,10 +253,11 @@ def rpn_3d_loss(outputs: Dict[str, torch.Tensor],
     coords_tar = bbox_transform_inv_t(rois_t, batch["bbox_2d"].to(f32),
                                       means[0:4], stds[0:4])
     ious = iou_list_t(coords, coords_tar)
-    stats["iou"] = masked_mean(ious, bbox_weights)
+    stats["iou"] = masked_mean(ious, bbox_weights, n_fg_sel)
     if cfg.iou_2d_lambda:
         iou_loss = -torch.log(clip(ious, 1e-7, 1.0))
-        loss_iou = masked_mean(iou_loss, bbox_weights) * cfg.iou_2d_lambda
+        loss_iou = masked_mean(iou_loss, bbox_weights, n_fg_sel) \
+            * cfg.iou_2d_lambda
         loss = loss + loss_iou
         stats["loss_iou"] = loss_iou
 
@@ -246,11 +268,17 @@ def rpn_3d_loss(outputs: Dict[str, torch.Tensor],
         dec_tar = decode_bbox_3d_t(rois_t, batch["bbox_3d"].to(f32), src3d_t,
                                    means, stds)
         stats["err_z"] = masked_mean(torch.abs(dec[:, 2] - dec_tar[:, 2]),
-                                     bbox_weights)
+                                     bbox_weights, n_fg_sel)
         stats["err_ry"] = masked_mean(torch.abs(dec[:, 6] - dec_tar[:, 6]),
-                                      bbox_weights)
+                                      bbox_weights, n_fg_sel)
 
     stats["loss"] = loss
-    stats["fg_count"] = fg_total.to(f32)
+    stats = {k: v.detach() for k, v in stats.items()}
+    if group is not None:
+        keys = sorted(stats)
+        shares = torch.stack([stats[k] for k in keys])
+        dist.all_reduce(shares, group=group)
+        stats = dict(zip(keys, shares.unbind()))
+    stats["fg_count"] = n_fg_sel
     stats["bg_count"] = bg_total.to(f32)
-    return loss, {k: v.detach() for k, v in stats.items()}
+    return loss, stats

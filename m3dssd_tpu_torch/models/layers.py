@@ -46,11 +46,25 @@ class BatchNorm2d(nn.BatchNorm2d):
     layout) sums each channel, forward and backward, in float32 in one
     chain per thread, which moved a CPU train step's updates away from the
     reference's by an amount that changed with the thread count.
+
+    `process_group` (set by `build(group=...)`): in train mode the
+    statistics are those of the group's global batch
+    (`parallel/sync_bn.py`), with the same running-statistics update on
+    every rank.
     """
+
+    process_group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.process_group is not None:
+            from ..parallel.sync_bn import GroupBatchNorm
+
+            y, mean, var = GroupBatchNorm.apply(x, self.weight, self.bias,
+                                                self.eps, self.process_group)
+            self._update_running(mean, var)
+            return y
         cpu = x.device.type == "cpu"
         xs = x.double() if cpu else x
         with torch.no_grad():
@@ -59,10 +73,7 @@ class BatchNorm2d(nn.BatchNorm2d):
             var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean,
                               min=0.0)
             del xf
-            rm, rv = self.running_mean, self.running_var
-            rm.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean.to(rm.dtype))
-            rv.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var.to(rv.dtype))
-            self.num_batches_tracked.add_(1)
+            self._update_running(mean, var)
         if not cpu:
             return F.batch_norm(x, None, None, self.weight, self.bias,
                                 training=True, eps=self.eps)
@@ -72,6 +83,13 @@ class BatchNorm2d(nn.BatchNorm2d):
         w = self.weight.double()[None, :, None, None]
         b = self.bias.double()[None, :, None, None]
         return ((xs - mean) * torch.rsqrt(var + self.eps) * w + b).to(x.dtype)
+
+    @torch.no_grad()
+    def _update_running(self, mean, var):
+        rm, rv = self.running_mean, self.running_var
+        rm.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * mean.to(rm.dtype))
+        rv.mul_(BN_MOMENTUM).add_((1.0 - BN_MOMENTUM) * var.to(rv.dtype))
+        self.num_batches_tracked.add_(1)
 
 
 def batch_norm(channels: int) -> BatchNorm2d:

@@ -25,8 +25,8 @@ import torch.nn as nn
 from ..utils.device import resolve_device
 from .align import CenterAlign, ShapeAlign, confident_topm
 from .attention import ANAB
-from .layers import BilinearUpsample, batch_norm, bilinear_upsample_kernel, \
-    conv2d, leaky_relu
+from .layers import BatchNorm2d, BilinearUpsample, batch_norm, \
+    bilinear_upsample_kernel, conv2d, leaky_relu
 from .necks import DCN, DLASeg
 
 
@@ -261,7 +261,8 @@ def _cast_params(model: nn.Module, dtype: torch.dtype) -> None:
             mod.running_var.data = mod.running_var.data.to(dtype)
 
 
-def build(conf, device=None, seed: int = 0, phase: str = "eval") -> M3DRPN:
+def build(conf, device=None, seed: int = 0, phase: str = "eval",
+          group=None) -> M3DRPN:
     """Build the detector for `conf`, initialised from `seed`.
 
     Runs on the card unless `device` names another device (`"cpu"` for the
@@ -273,6 +274,10 @@ def build(conf, device=None, seed: int = 0, phase: str = "eval") -> M3DRPN:
     that require grad, computing in conf.compute_dtype (cast at use, as the
     reference's flax modules with param_dtype float32 do); `model.eval()`
     and `model.train()` switch it for an in-training evaluation.
+
+    `group`: the process group of a data axis (`parallel.make_mesh`); its
+    BatchNorm layers then take their train-mode statistics over the
+    group's global batch (`parallel/sync_bn.py`).
     """
     if phase not in ("eval", "train"):
         raise ValueError(f"phase {phase!r}: 'eval' or 'train'")
@@ -292,6 +297,10 @@ def build(conf, device=None, seed: int = 0, phase: str = "eval") -> M3DRPN:
         sparse_align_topm=int(conf.sparse_align_topm),
         sparse_align_train=bool(conf.sparse_align_train))
     init_weights(model, torch.Generator().manual_seed(seed))
+    if group is not None:
+        for m in model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.process_group = group
     dtype = torch.bfloat16 if conf.compute_dtype == "bfloat16" \
         else torch.float32
     if phase == "train":

@@ -102,7 +102,10 @@ def smooth_l1(pred, target):
     return torch.where(d < 1.0, 0.5 * d * d, d - 0.5)
 
 
-def masked_mean(x, mask, eps: float = 1e-12):
-    """sum(x * mask) / sum(mask), with a safe denominator."""
+def masked_mean(x, mask, count=None, eps: float = 1e-12):
+    """sum(x * mask) / count, with a safe denominator; `count` defaults to
+    sum(mask) (a data-parallel loss passes the global batch's)."""
     m = mask.to(x.dtype)
-    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=eps)
+    if count is None:
+        count = torch.sum(m)
+    return torch.sum(x * m) / torch.clamp(count, min=eps)

@@ -12,8 +12,14 @@ This module imports nothing of the package at the top, so that the
 snapshot can take the package's place before anything of it is loaded.
 With `--torch_weights` a checkpoint of the original model is evaluated
 (utils/torch_import.py; learned neck offsets pin the gather DCN) and the
-results go to `results_parity_<tag>`. The `--mesh_*` flags wait for the
-port's parallel slice.
+results go to `results_parity_<tag>`.
+
+`--mesh_devices k` evaluates over a data axis of k processes, one per
+card, under torchrun (`python -m torch.distributed.run --nproc_per_node k
+-m m3dssd_tpu_torch.scripts.test --mesh_devices k ...`): each rank
+detects its share of the batches and rank 0 writes the txts and the AP
+(inference/test_driver.py). `--mesh_spatial` and `--mesh_model` above 1
+are not ported and raise.
 """
 
 from __future__ import annotations
@@ -42,9 +48,13 @@ def parse_args(argv=None):
     p.add_argument("--no_src_snapshot", action="store_true",
                    help="evaluate with the live package, not the run's "
                         "model_src/ snapshot")
-    for name in ("--mesh_devices", "--mesh_spatial", "--mesh_model"):
-        p.add_argument(name, type=int, default=0 if name.endswith(
-            "devices") else 1, help="not ported: must stay at most 1")
+    p.add_argument("--mesh_devices", type=int, default=0,
+                   help="data-parallel eval over this many processes; run "
+                        "under torchrun --nproc_per_node with the same "
+                        "count")
+    for name in ("--mesh_spatial", "--mesh_model"):
+        p.add_argument(name, type=int, default=1,
+                       help="not ported: must stay at most 1")
     return p.parse_args(argv)
 
 
@@ -83,11 +93,13 @@ def load_conf(run_dir: str):
 
 
 def run_test(run_dir: str, data_root=None, step=None, phase="validation",
-             torch_weights=None, device=None, dataset=None, gt_path=None):
+             torch_weights=None, device=None, dataset=None, gt_path=None,
+             mesh=None):
     """Evaluate the run's checkpoint of `step` (default the latest), or the
     original-model checkpoint `torch_weights`, on `phase` of `data_root`
-    (or the in-memory `dataset` with its labels at `gt_path`). Returns
-    (AP dict, selection metric: mean Car 3D AP-R40)."""
+    (or the in-memory `dataset` with its labels at `gt_path`), over the
+    data axis `mesh` when given (`parallel.make_mesh`). Returns (AP dict,
+    or None off rank 0; selection metric: mean Car 3D AP-R40)."""
     from ..anchors import locate_anchors
     from ..data.kitti import _PHASE_DIR, Kitti3DDataset
     from ..inference.detect import (make_batch_detector, make_detector,
@@ -136,19 +148,35 @@ def run_test(run_dir: str, data_root=None, step=None, phase="validation",
     return test_kitti_3d(dataset, detect, conf, results,
                          gt_path=gt_path if gt_path and os.path.isdir(gt_path)
                          else None,
-                         batch_size=eval_bs, packed_input=packed)
+                         batch_size=eval_bs, packed_input=packed, mesh=mesh)
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if max(args.mesh_devices, args.mesh_spatial, args.mesh_model) > 1:
-        raise NotImplementedError("sharded eval (--mesh_*) is not ported")
+    if max(args.mesh_spatial, args.mesh_model) > 1:
+        raise NotImplementedError(
+            "--mesh_spatial / --mesh_model: the spatial and model mesh axes "
+            "are not ported (ROADMAP.md, queue 1, item 3)")
+    device = "cpu" if args.cpu else None
+    if args.mesh_devices > 1:
+        from ..parallel.mesh import init_distributed
+
+        world = init_distributed(device=device)
+        if world != args.mesh_devices:
+            raise ValueError(f"--mesh_devices {args.mesh_devices} under a "
+                             f"world of {world} processes: launch with "
+                             "torchrun --nproc_per_node "
+                             f"{args.mesh_devices}")
     mod = use_run_source(args.run_dir, snapshot=not args.no_src_snapshot)
     print(f"{PACKAGE} source: {mod.package_dir()}", flush=True)
+    mesh = None
+    if args.mesh_devices > 1:
+        par = importlib.import_module(f"{PACKAGE}.parallel.mesh")
+        mesh = par.make_mesh(args.mesh_devices, device=device)
     res, sel = mod.run_test(args.run_dir, args.data_root, step=args.step,
                             phase=args.phase,
                             torch_weights=args.torch_weights,
-                            device="cpu" if args.cpu else None)
+                            device=device, mesh=mesh)
     if res:
         print(res["_text"])
         print("selection metric (mean Car 3D R40):", sel)

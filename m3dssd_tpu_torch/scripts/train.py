@@ -8,8 +8,15 @@ The run directory gets conf.pkl, the source snapshot (model_src/), the
 checkpoints (weights/, weights_best/), the eval result txts and, at the
 end, a seed checkpoint of the final weights (seed/), from which another
 run starts with a fresh optimizer (`conf.pretrained=<run dir>`).
-Multi-process training (the reference's `--distributed`) waits for the
-port's parallel slice.
+
+Data-parallel training runs one process per card under torchrun:
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m m3dssd_tpu_torch.scripts.train --distributed --config ... \
+        --batch_size 8
+
+Each rank takes batch_size / k rows of every global batch; rank 0 writes
+the run directory (train/trainer.py).
 """
 
 from __future__ import annotations
@@ -37,6 +44,11 @@ def parse_args(argv=None):
                         "rename it with the best metric at the end")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (plain ops) instead of the card")
+    p.add_argument("--distributed", action="store_true",
+                   help="data-parallel over the processes torchrun starts: "
+                        "python -m torch.distributed.run --nproc_per_node k "
+                        "-m m3dssd_tpu_torch.scripts.train --distributed ... "
+                        "(NCCL on cards, gloo with --cpu)")
     return p.parse_args(argv)
 
 
@@ -75,7 +87,8 @@ def run_train(conf, data_root, output: str, cache=None, epochs=None,
         restore_checkpoint(os.path.join(output, "weights"), trainer.state,
                            restore)
     trainer.run(epochs)
-    save_seed(trainer.output_dir, trainer.model)
+    if trainer.primary:
+        save_seed(trainer.output_dir, trainer.model)
     if timestamp:
         trainer.finalize_run_dir()
     return trainer
@@ -83,6 +96,10 @@ def run_train(conf, data_root, output: str, cache=None, epochs=None,
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.distributed:
+        from ..parallel.mesh import init_distributed
+
+        init_distributed(device="cpu" if args.cpu else None)
     conf = make_conf(args.config, args.batch_size, args.backbone, args.crop,
                      args.no_pretrain)
     tr = run_train(conf, args.data_root, args.output, cache=args.cache,

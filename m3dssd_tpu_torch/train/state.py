@@ -21,7 +21,9 @@ has to do what the reference's optax chain does:
 
 `make_train_step` returns `train_step(state, batch, generator) -> stats`:
 forward in train mode (BN running statistics move), the loss, the
-gradients, the optimizer update; stats stay tensors on the device.
+gradients, the optimizer update; stats stay tensors on the device. Under a
+data axis (`group`) the step over the ranks' rows is the single-process
+step on the global batch (`parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import numpy as np
 import torch
 
 from ..losses.rpn_loss import RPNLossConfig, rpn_3d_loss
+from ..parallel.mesh import all_reduce_grads
 from .lr import make_lr_schedule
 
 _SOLVERS = ("sgd", "adam", "adamax")
@@ -189,7 +192,8 @@ def create_train_state(conf, model, max_iter: int,
                       trainable=trainable_mask_fn)
 
 
-def make_train_step(conf, rois: np.ndarray, packed_input: bool = False):
+def make_train_step(conf, rois: np.ndarray, packed_input: bool = False,
+                    group=None):
     """`train_step(state, batch, generator) -> stats`.
 
     batch: the loader's dict of tensors (images [B,H,W,3], or with
@@ -203,6 +207,16 @@ def make_train_step(conf, rois: np.ndarray, packed_input: bool = False):
     (`targets.build_gt_arrays` keys) instead of the targets, and the step
     assigns the targets on the device before the forward
     (`ops/targets_device.py`).
+
+    `group`: the process group of a data axis, whose ranks each pass their
+    rows of the global batch and a model built under the same group
+    (`build(group=...)`). The loss is normalised over the global batch and
+    the gradients are summed over the ranks before the optimizer, so the
+    clip and the batch_skip accumulation see the global gradient; the
+    step's `reduced_bytes` attribute holds the bytes of its last
+    all-reduce. The model is not wrapped in DistributedDataParallel: its
+    reducer runs on gradients accumulated into `.grad`, which
+    `torch.autograd.grad` never does.
     """
     loss_cfg = RPNLossConfig.from_conf(conf)
     target_fn = None
@@ -242,7 +256,7 @@ def make_train_step(conf, rois: np.ndarray, packed_input: bool = False):
         model.train()
         outputs = model(batch["images"], packed=packed_input)
         loss, stats = rpn_3d_loss(outputs, batch, *constants(dev), loss_cfg,
-                                  generator)
+                                  generator, group=group)
         params = state.params()
         names = state.optimizer.names
         grads = torch.autograd.grad(loss, [params[n] for n in names],
@@ -250,6 +264,8 @@ def make_train_step(conf, rois: np.ndarray, packed_input: bool = False):
         del outputs, loss
         grads = {n: torch.zeros_like(params[n]) if g is None else g
                  for n, g in zip(names, grads)}
+        train_step.reduced_bytes = all_reduce_grads(list(grads.values()),
+                                                    group)
         state.optimizer.step(params, grads)
         if pinned:
             with torch.no_grad():
@@ -259,4 +275,5 @@ def make_train_step(conf, rois: np.ndarray, packed_input: bool = False):
         state.step += 1
         return stats
 
+    train_step.reduced_bytes = 0
     return train_step

@@ -1,17 +1,26 @@
 """The training driver: epochs, display, snapshots, periodic KITTI eval and
 the best model.
 
-The port's counterpart of the reference package's `train/trainer.py`, in
-one process on one device. `Trainer(conf, data_root, output_dir)` reads the
-KITTI-layout train and validation splits; `dataset=` / `val_dataset=` take
-in-memory splits instead (`data.synthetic.SyntheticTrainSet`,
-`SyntheticEvalSet`), for a machine without an image codec. At start the
+The port's counterpart of the reference package's `train/trainer.py`.
+`Trainer(conf, data_root, output_dir)` reads the KITTI-layout train and
+validation splits; `dataset=` / `val_dataset=` take in-memory splits
+instead (`data.synthetic.SyntheticTrainSet`, `SyntheticEvalSet`), for a
+machine without an image codec. At start the
 run directory gets the resolved config (`conf.pkl`) and a snapshot of the
 package source (`model_src/`, utils/source_snapshot.py). `conf.pretrained`
 names a seed checkpoint directory (weights only, fresh optimizer), a
 checkpoint directory of the port, or a .pth/.pkl checkpoint of the
 original model (utils/torch_import.py). Left out: video detection and the
 compilation cache.
+
+Under torch.distributed (one process per card, `parallel/mesh.py`) the
+Trainer trains data-parallel over a data axis of `conf.dp_devices` ranks,
+or else of the largest divisor of the batch size that fits the world, as
+the reference sizes its mesh. Each rank decodes only its rows of every
+global batch; the step is the single-process step on the global batch.
+Rank 0 alone writes conf.pkl, the source snapshot, the checkpoints and
+the eval's txts; the other ranks log to log/train.p<rank>.log. Every rank
+takes part in the periodic eval and takes the same best-model branch.
 """
 
 from __future__ import annotations
@@ -29,6 +38,8 @@ from ..data.loader import TrainLoader
 from ..inference.detect import make_batch_detector, packed_input_eligible
 from ..inference.test_driver import test_kitti_3d
 from ..models import build
+from ..parallel.mesh import (barrier, make_mesh, per_host_data_slicing_ok,
+                             replicate_state, world)
 from ..utils.checkpoint import (is_seed_checkpoint, restore_checkpoint,
                                 restore_seed, save_checkpoint,
                                 wait_for_saves)
@@ -39,6 +50,28 @@ from ..utils.source_snapshot import snapshot_source
 from ..utils.torch_import import (load_reference_checkpoint,
                                   load_torch_file, pin_parity_conf)
 from .state import create_train_state, make_train_step
+
+
+def data_parallel_size(conf, world_size: int) -> int:
+    """The data axis's size: conf.dp_devices when set, else the largest
+    divisor of the global batch size that fits `world_size` ranks (the
+    axis splits every batch evenly). Logs a warning when it leaves ranks
+    idle, and raises when it is 1 under several processes: they would
+    each train apart."""
+    if conf.dp_devices > 0:
+        dp = int(conf.dp_devices)
+    else:
+        dp = max(d for d in range(1, world_size + 1)
+                 if conf.batch_size % d == 0)
+    if dp == 1 and world_size > 1:
+        raise ValueError(
+            f"a data axis of 1 under {world_size} processes would train "
+            "each process apart: set conf.dp_devices, or a batch size "
+            f"({conf.batch_size}) with a divisor above 1 that fits them")
+    if dp < world_size:
+        logging.warning("a data axis of %d ranks in a world of %d: ranks "
+                        "%d and above idle", dp, world_size, dp)
+    return dp
 
 
 class Trainer:
@@ -60,33 +93,53 @@ class Trainer:
                                       time.strftime("%Y%m%d_%H%M%S"))
         self.output_dir = output_dir
         os.makedirs(output_dir, exist_ok=True)
-        init_logging(os.path.join(output_dir, "log", "train.log"))
+        rank, world_size = world()
+        init_logging(os.path.join(output_dir, "log", "train.log" if rank == 0
+                                  else f"train.p{rank}.log"))
         logging.info("\n%s", pretty_print(
             "conf", {f.name: getattr(conf, f.name)
                      for f in dataclasses.fields(conf)}))
+        # the data axis comes before the loader, which slices each global
+        # batch per process
+        self.mesh = None
+        if world_size > 1:
+            self.mesh = make_mesh(data_parallel_size(conf, world_size),
+                                  conf.mesh_spatial, conf.mesh_model,
+                                  device=self.device)
+            logging.info("data axis: rank %d of %d", rank, self.mesh.size)
+        self.primary = rank == 0
+        group = None if self.mesh is None else self.mesh.group
+        sliced = per_host_data_slicing_ok(self.mesh)
 
         self.dataset = dataset if dataset is not None else Kitti3DDataset(
             conf, data_root, phase="train", cache_folder=cache_folder)
         self.packed_input = bool(conf.stem_s2d and conf.crop_size[0] % 2 == 0
                                  and conf.crop_size[1] % 2 == 0)
-        self.loader = TrainLoader(self.dataset, conf.batch_size,
-                                  num_workers=conf.num_workers,
-                                  seed=conf.rng_seed,
-                                  pack_s2d=self.packed_input)
+        self.loader = TrainLoader(
+            self.dataset, conf.batch_size, num_workers=conf.num_workers,
+            seed=conf.rng_seed, pack_s2d=self.packed_input,
+            process_index=self.mesh.rank if sliced else 0,
+            process_count=self.mesh.size if sliced else 1)
         self.steps_per_epoch = self.loader.steps_per_epoch
         self.max_iter = conf.max_epoch * self.steps_per_epoch
-        conf.save(os.path.join(output_dir, "conf.pkl"))
-        snapshot_source(output_dir)
+        if self.primary:
+            conf.save(os.path.join(output_dir, "conf.pkl"))
+            snapshot_source(output_dir)
 
         self.model = build(conf, device=self.device, seed=conf.rng_seed,
-                           phase="train")
+                           phase="train", group=group)
         self.state = create_train_state(conf, self.model, self.max_iter)
         self.train_step = make_train_step(conf, self.dataset.rois,
-                                          packed_input=self.packed_input)
+                                          packed_input=self.packed_input,
+                                          group=group)
+        # one seed on every rank: the loss's random sampling draws the
+        # global batch's scores from it
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(conf.rng_seed)
         if conf.pretrained:
             self._load_pretrained(conf.pretrained)
+        if self.mesh is not None and self.mesh.member:
+            replicate_state(self.mesh, self.state)
 
         self.best_metric = -1.0
         self.val_dataset = val_dataset
@@ -114,7 +167,9 @@ class Trainer:
             num_classes=conf.num_classes, block=block)
         self.model.load_state_dict(sd, strict=True)
 
-    def _gt_path(self) -> str:
+    def _gt_path(self) -> Optional[str]:
+        if not self.primary:
+            return None
         if hasattr(self.val_dataset, "write_labels"):
             return self.val_dataset.write_labels(
                 os.path.join(self.output_dir, "results", "gt"))
@@ -146,7 +201,7 @@ class Trainer:
                 self.val_dataset, self._eval_detect, conf, results,
                 gt_path=self._gt_path(),
                 batch_size=max(int(conf.eval_batch_size), 1),
-                packed_input=packed)
+                packed_input=packed, mesh=self.mesh)
         finally:
             self.model.train()
         self.last_eval = res
@@ -157,6 +212,8 @@ class Trainer:
 
     def run(self, epochs: Optional[int] = None):
         conf = self.conf
+        if self.mesh is not None and not self.mesh.member:
+            return self.state
         epochs = epochs or conf.max_epoch
         tracker = StatTracker(writer=self.writer)
         t0 = time.time()
@@ -179,24 +236,28 @@ class Trainer:
                 eta, dt = compute_eta(t0, it - it0, self.max_iter - it0)
                 tracker.flush(it, extra=f"epoch {epoch} end dt {dt:.3f}s "
                                         f"eta {eta}")
-            if (epoch + 1) % conf.snapshot_epoch == 0 or epoch + 1 == epochs:
+            if self.primary and ((epoch + 1) % conf.snapshot_epoch == 0
+                                 or epoch + 1 == epochs):
                 save_checkpoint(os.path.join(self.output_dir, "weights"),
                                 self.state, it, async_save=True)
             if conf.do_test and (epoch + 1) % conf.eval_epoch == 0:
                 sel = self._eval(epoch + 1)
                 if sel > self.best_metric:
                     self.best_metric = sel
-                    save_checkpoint(os.path.join(self.output_dir,
-                                                 "weights_best"),
-                                    self.state, it, async_save=True)
+                    if self.primary:
+                        save_checkpoint(os.path.join(self.output_dir,
+                                                     "weights_best"),
+                                        self.state, it, async_save=True)
                     logging.info("new best model: %.4f", sel)
         wait_for_saves()
+        # every checkpoint is on disk before any rank goes on to read one
+        barrier(self.mesh)
         return self.state
 
     def finalize_run_dir(self) -> str:
         """Rename the run directory to `<output_dir>_<best metric>` when an
-        eval produced one; returns the (possibly new) path."""
-        if self.best_metric <= 0:
+        eval produced one (rank 0 only); returns the (possibly new) path."""
+        if self.best_metric <= 0 or not self.primary:
             return self.output_dir
         new_dir = f"{self.output_dir}_{self.best_metric:.4f}"
         os.rename(self.output_dir, new_dir)

@@ -107,7 +107,7 @@ def main(argv=None) -> int:
             ProcessPoolExecutor(max_workers=1, mp_context=spawn) as worker:
         ref = os.path.join(tmp, "ref")
         os.makedirs(ref)
-        drv._run_batched(data, ev.detect, conf, ref, B, ev.pack, ev.device)
+        drv._run_batched(data, ev.detect, conf, drv.txt_writer(ref), B, ev.pack, ev.device)
         want = cs.read_txts(ref)
         # start the worker and its imports before any timing
         worker.submit(_post_batch, conf, np.zeros((0, 0, 14)), [],
@@ -115,12 +115,14 @@ def main(argv=None) -> int:
 
         loops = {
             "driver, 8 prefetch threads": lambda d: drv._run_batched(
-                data, ev.detect, conf, d, B, ev.pack, ev.device),
+                data, ev.detect, conf, drv.txt_writer(d), B, ev.pack,
+                ev.device),
             "driver, 4 prefetch threads": lambda d: drv._run_batched(
-                data, ev.detect, conf, d, B, ev.pack, ev.device,
-                prefetch_workers=4),
+                data, ev.detect, conf, drv.txt_writer(d), B, ev.pack,
+                ev.device, prefetch_workers=4),
             "driver, pageable packs": lambda d: drv._run_batched(
-                data, ev.detect, conf, d, B, unpinned, ev.device),
+                data, ev.detect, conf, drv.txt_writer(d), B, unpinned,
+                ev.device),
             "post-process in a spawned process": lambda d: loop_post_process(
                 ev, d, worker, B),
         }

@@ -189,6 +189,9 @@ def test_clis_raise_without_a_card_unless_asked_for_the_cpu(run):
         traj_cli.main(["--run", out, "--gt", str(root)])
     with pytest.raises(NotImplementedError):
         test_cli.main(["--run_dir", out, "--data_root", "x", "--cpu",
+                       "--mesh_spatial", "2"])
+    with pytest.raises(RuntimeError, match="torchrun"):
+        test_cli.main(["--run_dir", out, "--data_root", "x", "--cpu",
                        "--mesh_devices", "2"])
 
 
