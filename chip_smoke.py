@@ -15,8 +15,9 @@ trains the flagship at 384x1280 bs=8 bf16 (`build(phase="train")`,
 with a float64 step on the CPU, and that step's DCN backward calls with
 the float64 plain backward on the same operands, holds the device target
 assignment against the host targets on the same loader batches and trains
-with it, and drives a run directory's lifecycle: the train CLI's function
-(one Trainer epoch with snapshot, seed and eval), the test CLI's function
+with it, and drives a run directory's lifecycle on DLA-60 (DLA-102's
+widths, less depth): the train CLI's function (one Trainer epoch with
+snapshot, seed and eval), the test CLI's function
 from the run's source snapshot in a fresh process, the export CLI's
 function and `load_detector`, exported artifacts against eager detect in
 both align regimes, and a checkpoint in the original model's layout
@@ -27,7 +28,12 @@ ranks on one device) and over a one-rank NCCL group, in bf16 and in
 float32, against the one-process step, the group BatchNorm alone against
 the one-process BatchNorm at every BatchNorm shape of that step, and
 `test_kitti_3d` over the two ranks against the one-process driver's
-bytes. Every kernel's launch count
+bytes. Last, the train step with every option on: dla34_depth at
+512x1760 bs=8 bf16 with k-means anchors, photometric distortion in the
+loader and both 3D loss branches, with host and device targets, every
+DCN call of one such step against the plain version on its operands, the
+3D-GIoU branch alone, ops/iou3d.py against the CPU in float64, and a
+float32 card step against the float64 CPU step. Every kernel's launch count
 is set to 0 before a main-path run and read after it (a rank process
 counts its own); each phase prints its seconds. Any failed check ends the run
 with a non-zero exit code.
@@ -1175,6 +1181,10 @@ GT_KEYS = ("gt_boxes2d", "gt_boxes3d", "gt_cls", "gt_valid", "ign_boxes",
            "ign_valid")
 # validation images of the lifecycle's eval and test runs
 LIFE_VAL = 16
+# the lifecycle's backbone: DLA-102's widths at less depth (trees of 2 and
+# 3 levels where DLA-102 has 3 and 4), so that its two exports keep the
+# whole run within its time
+LIFE_BACKBONE = "dla60"
 # BN folded from the float32 checkpoint against the unfolded model: the
 # FOLD_Q quantile of each output's |diff| from the float32 unfolded model,
 # relative to its largest magnitude, at most FOLD_TOL in float32 and at most
@@ -1355,15 +1365,15 @@ print(json.dumps({{"source": mod.package_dir(), "dcn_cuda": dcn_cuda.__file__,
 
 
 def phase_run_lifecycle(label):
-    """The run directory at full width (flagship, 384x1280 bs=8): the train
-    CLI's function (one Trainer epoch: 8 steps, source snapshot, checkpoint,
-    seed, eval on LIFE_VAL images), the test CLI's function from the run's
-    source snapshot in a fresh process (its kernels built from the
-    snapshot's csrc/), the export CLI's function (batched, packed, BN
-    folded from the float32 checkpoint) and `load_detector`, its artifact
-    against eager detect on the same folded weights and the folded model
-    against the unfolded one, and a second artifact in the other align
-    regime. Returns the kernels' launches."""
+    """The run directory at full width (the flagship on LIFE_BACKBONE,
+    384x1280 bs=8): the train CLI's function (one Trainer epoch: 8 steps,
+    source snapshot, checkpoint, seed, eval on LIFE_VAL images), the test
+    CLI's function from the run's source snapshot in a fresh process (its
+    kernels built from the snapshot's csrc/), the export CLI's function
+    (batched, packed, BN folded from the float32 checkpoint) and
+    `load_detector`, its artifact against eager detect on the same folded
+    weights and the folded model against the unfolded one, and a second
+    artifact in the other align regime. Returns the kernels' launches."""
     import tempfile
 
     from m3dssd_tpu_torch.anchors import locate_anchors
@@ -1392,7 +1402,7 @@ def phase_run_lifecycle(label):
         # every NMS slot kept (the result writer drops the rows below
         # score_thres all the same), so the artifacts' compared rows are
         # real detections
-        conf = train_conf(TRAIN_CROP, B).replace(
+        conf = train_conf(TRAIN_CROP, B, backbone=LIFE_BACKBONE).replace(
             max_epoch=1, snapshot_epoch=1, eval_epoch=1, eval_batch_size=B,
             display_iter=4, warmup=1.0 / 70, nms_score_stop=False)
         ds = train_set(conf)
@@ -1439,8 +1449,8 @@ def phase_run_lifecycle(label):
               and "Car_3d_R40" in tr.last_eval,
               f"train CLI eval: {len(txts)} result txts")
         rows = check_rows(txts, conf.lbls)
-        log(f"lifecycle 384x1280 bs={B} ({label}): train CLI "
-            f"{tr.state.step} steps, checkpoint (model and optimizer) "
+        log(f"lifecycle {LIFE_BACKBONE} 384x1280 bs={B} ({label}): train "
+            f"CLI {tr.state.step} steps, checkpoint (model and optimizer) "
             f"restored bit-identically, seed and source snapshot written, "
             f"eval {len(txts)} txts ({rows} rows), Car_3d_R40 "
             f"{tr.last_eval['Car_3d_R40']}; {train_s:.1f} s; kernel "
@@ -1699,17 +1709,15 @@ def update_errors(after, before, ref_after, names):
     return own, diff / top
 
 
-def phase_train_card_vs_cpu():
-    """One train step of the flagship on dla34 at 128x448 from the same
-    weights (DCN offset convs zero, so every neck offset is exactly 0) and
-    the same batch, without weight decay: on the card through the kernels
-    in float32 (TF32 off) and on the CPU through the plain ops in float64.
-    Then each of the card step's 8 DCN backward calls again on the CPU: the
-    float64 plain backward on the operands the card gave, per tensor
-    against what the kernels returned. Returns the errors."""
-    from m3dssd_tpu_torch.data.loader import TrainLoader
-    from m3dssd_tpu_torch.data.synthetic import SyntheticTrainSet
-    from m3dssd_tpu_torch.models import build
+def card_vs_cpu_step(conf, rois, batch, make_model, packed_input):
+    """One train step from the same weights on the same batch: on the card
+    through the kernels in float32 (TF32 off) and on the CPU through the
+    plain ops in float64 (`make_model(device, dtype)` gives each its model,
+    all with the same weights). Then each of the card step's 8 DCN backward
+    calls again on the CPU: the float64 plain backward on the operands the
+    card gave, per tensor against what the kernels returned. Checks every
+    limit of TRAIN_CPU_TOL and returns (errors, per-tensor update errors,
+    DCN gradient errors per call, stats of both steps)."""
     from m3dssd_tpu_torch.ops import dcn_cuda
     from m3dssd_tpu_torch.ops.dcn import dcn_v2_shift_backward_reference
     from m3dssd_tpu_torch.train.state import (create_train_state,
@@ -1717,14 +1725,10 @@ def phase_train_card_vs_cpu():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    H, W = TRAIN_CPU_CROP
-    conf = train_conf(TRAIN_CPU_CROP, 2, dtype="float32", backbone="dla34",
-                      num_scales=4).replace(warmup=0.0, weight_decay=0.0)
-    ds = SyntheticTrainSet(conf, 32, seed=9, imW=W, imH=H, min_h_px=10)
-    batch = next(TrainLoader(ds, 2, num_workers=2, seed=1, pack_s2d=True,
-                             pin=False).batches(1))
-    init = build(conf, device="cpu", seed=0, phase="train").state_dict()
-    after, stats, calls = {}, {}, []
+    init = {k: v.detach().cpu().clone()
+            for k, v in make_model("cpu", torch.float32).state_dict()
+            .items()}
+    after, stats, calls, pnames = {}, {}, [], None
     real = dcn_cuda.dcn_v2_shift_backward_cuda
 
     def spy(x, offset, mask, weight, g, *, clamp=1.0):
@@ -1736,9 +1740,10 @@ def phase_train_card_vs_cpu():
 
     for key, dev, dtype in (("card", "cuda", torch.float32),
                             ("cpu64", "cpu", torch.float64)):
-        model = build(conf, device=dev, seed=0, phase="train").to(dtype)
+        model = make_model(dev, dtype)
+        pnames = [n for n, _ in model.named_parameters()]
         state = create_train_state(conf, model, max_iter=10 ** 6)
-        step = make_train_step(conf, ds.rois, packed_input=True)
+        step = make_train_step(conf, rois, packed_input=packed_input)
         reset_counts()
         dcn_cuda.dcn_v2_shift_backward_cuda = spy
         try:
@@ -1750,16 +1755,14 @@ def phase_train_card_vs_cpu():
             check(all(v == 8 for v in n.values()), f"card step launched {n}")
         after[key] = {k: v.detach().cpu() for k, v in
                       model.state_dict().items()}
+        del model, state
     check(stats["cpu64"]["fg_count"] > 0, "card vs CPU batch has no "
           "sampled fg")
     check(len(calls) == 8, f"{len(calls)} DCN backward calls on the card")
-    pnames = [n for n, _ in build(conf, device="cpu",
-                                  phase="train").named_parameters()]
     stat_names = [n for n in init if n.endswith(("running_mean",
                                                  "running_var"))]
     own, largest = update_errors(after["card"], init, after["cpu64"], pnames)
     vals = sorted(own.values())
-    dcn = {n: e for n, e in own.items() if "DCN_0" in n}
     errs = {"loss": abs(stats["card"]["loss"] - stats["cpu64"]["loss"])
             / abs(stats["cpu64"]["loss"]),
             "bn_stats": max(float((after["card"][n].double()
@@ -1790,20 +1793,418 @@ def phase_train_card_vs_cpu():
     for k, lim in TRAIN_CPU_TOL.items():
         check(errs[k] <= lim, f"train step card vs CPU float64: {k} error "
               f"{errs[k]} above {lim}")
+    return errs, own, dcn_grads, stats
+
+
+def dcn_calls_vs_plain(fn):
+    """fn() with the shift-DCN forward and backward wrappers spied on: each
+    call's result is held, on the card, against the plain version on the
+    same operands in the call's own types (`dcn_v2_shift_reference` to TOL,
+    as phase_kernel_vs_plain; `dcn_v2_shift_backward_reference` to
+    BWD_TOL, as phase_bwd_vs_plain). The spies launch nothing themselves.
+    Returns fn()'s result and, per call in order, (kind, (B, H, W, Cin,
+    Cout), errors): the forward's max|diff| over max(1, scale), the
+    backward's relative max|diff| of dx, doffset, dmask and dweight."""
+    from m3dssd_tpu_torch.ops import dcn as tdcn
+    from m3dssd_tpu_torch.ops import dcn_cuda
+
+    fwd = dcn_cuda.dcn_v2_shift_cuda
+    bwd = dcn_cuda.dcn_v2_shift_backward_cuda
+    calls = []
+
+    def spy_fwd(x, offset, mask, weight, bias=None, *, clamp=1.0):
+        out = fwd(x, offset, mask, weight, bias, clamp=clamp)
+        want = tdcn.dcn_v2_shift_reference(x, offset, mask, weight, bias,
+                                           clamp=clamp)
+        shape = tuple(x.shape) + (weight.shape[-1],)
+        err = float((out.float() - want.float()).abs().max()) \
+            / max(1.0, float(want.float().abs().max()))
+        check(math.isfinite(err) and err <= TOL[x.dtype],
+              f"forward kernel disagrees with plain on a step's operands at "
+              f"{shape} clamp {clamp} {x.dtype}: {err}")
+        calls.append(("forward", shape, [err]))
+        return out
+
+    def spy_bwd(x, offset, mask, weight, g, *, clamp=1.0):
+        out = bwd(x, offset, mask, weight, g, clamp=clamp)
+        want = tdcn.dcn_v2_shift_backward_reference(x, offset, mask, weight,
+                                                    g, clamp=clamp)
+        shape = tuple(x.shape) + (weight.shape[-1],)
+        errs = []
+        for name, a, b in zip(("dx", "doffset", "dmask", "dweight"), out,
+                              want):
+            scale = float(b.float().abs().max())
+            err = float((a.float() - b.float()).abs().max()) \
+                / max(scale, 1e-12)
+            check(scale > 0 and math.isfinite(err)
+                  and err <= BWD_TOL[x.dtype][name],
+                  f"backward {name} disagrees with plain on a step's operands"
+                  f" at {shape} clamp {clamp} {x.dtype}: {err} (scale "
+                  f"{scale})")
+            errs.append(err)
+        calls.append(("backward", shape, errs))
+        return out
+
+    dcn_cuda.dcn_v2_shift_cuda = spy_fwd
+    dcn_cuda.dcn_v2_shift_backward_cuda = spy_bwd
+    try:
+        return fn(), calls
+    finally:
+        dcn_cuda.dcn_v2_shift_cuda = fwd
+        dcn_cuda.dcn_v2_shift_backward_cuda = bwd
+
+
+def log_card_vs_cpu(what, errs, own, dcn_grads, stats):
+    vals = sorted(own.values())
     worst = sorted(((e, n) for n, e in own.items()), reverse=True)[:3]
-    log(f"train step card (kernels, float32) vs CPU (plain, float64) at "
-        f"{H}x{W} dla34, zero DCN offsets, no weight decay: loss "
-        f"{stats['card']['loss']:.6f} vs {stats['cpu64']['loss']:.6f}; "
+    dcn = [e for n, e in own.items() if "DCN_0" in n]
+    log(f"{what}: loss {stats['card']['loss']:.6f} vs "
+        f"{stats['cpu64']['loss']:.6f}; "
         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
         + f"; per-tensor update errors over {len(vals)} tensors: p90 "
         f"{vals[int(0.9 * len(vals))]:.3e}, largest {worst}; the 8 DCN "
-        f"layers' tensors {max(dcn.values()):.3e}")
+        f"layers' tensors {max(dcn):.3e}")
+    calls = len(dcn_grads) // 4
     log("  DCN backward on the card step's operands vs float64 plain, "
         "relative max|diff| per call (dx doffset dmask dweight): "
         + "; ".join(" ".join(f"{dcn_grads[f'{i}.{n}']:.1e}" for n in
                              ("dx", "doffset", "dmask", "dweight"))
-                    for i in range(len(calls))))
+                    for i in range(calls)))
+
+
+def phase_train_card_vs_cpu():
+    """One train step of the flagship on dla34 at 128x448 from the same
+    weights (DCN offset convs zero, so every neck offset is exactly 0) and
+    the same batch, without weight decay, on the card in float32 and on the
+    CPU in float64 (`card_vs_cpu_step`). Returns the errors."""
+    from m3dssd_tpu_torch.data.loader import TrainLoader
+    from m3dssd_tpu_torch.data.synthetic import SyntheticTrainSet
+    from m3dssd_tpu_torch.models import build
+
+    H, W = TRAIN_CPU_CROP
+    conf = train_conf(TRAIN_CPU_CROP, 2, dtype="float32", backbone="dla34",
+                      num_scales=4).replace(warmup=0.0, weight_decay=0.0)
+    ds = SyntheticTrainSet(conf, 32, seed=9, imW=W, imH=H, min_h_px=10)
+    batch = next(TrainLoader(ds, 2, num_workers=2, seed=1, pack_s2d=True,
+                             pin=False).batches(1))
+
+    def make_model(dev, dtype):
+        return build(conf, device=dev, seed=0, phase="train").to(dtype)
+
+    errs, own, dcn_grads, stats = card_vs_cpu_step(conf, ds.rois, batch,
+                                                   make_model, True)
+    log_card_vs_cpu(f"train step card (kernels, float32) vs CPU (plain, "
+                    f"float64) at {H}x{W} dla34, zero DCN offsets, no weight "
+                    "decay", errs, own, dcn_grads, stats)
     return errs
+
+
+# --------------------------------------------------------------------------
+# the train options: dla34_depth, k-means anchors, photometric distortion,
+# the 3D-projection and 3D-GIoU loss branches (ops/iou3d.py)
+# --------------------------------------------------------------------------
+
+# dla34_depth's 16 row bands sit in levels 2-5 (strides 4-32), so the input
+# height is a multiple of 512: the flagship's test scale
+CAP_CROP = (512, 1760)
+CAP_BATCH = 8
+CAP_SCENES = 32
+CAP_STEPS = 10
+CAP_OPTIONS = dict(back_bone="dla34_depth", distort_prob=0.5,
+                   cluster_anchors=1, bbox_3d_proj_lambda=1.0,
+                   bbox_3d_iou_lambda=1.0)
+# the float32 card step against the float64 CPU step (TRAIN_CPU_TOL)
+CAP_CPU_CROP = (512, 128)
+# ops/iou3d.py on the step's decoded boxes, card against CPU float64:
+# float64 on both sides to float64 rounding; the loss's float32 on the card
+# within 1e-5, as tests/test_torch_iou3d.py holds it
+IOU3D_TOL = {torch.float64: 1e-9, torch.float32: 1e-5}
+# the float32 GIoU gradient, relative to max(1, its largest magnitude): it
+# jumps where a rounding moves a polygon vertex across an edge, so it is
+# held two decades looser than the values
+DGIOU_F32_TOL = 1e-3
+NMS_THRESH, NMS_OUT = 0.3, 64
+
+
+def _cap_batch(N, B, crop, seed):
+    """A seeded random batch of host targets for N anchors, with a KITTI
+    camera's p2_inv (the projection branch needs it)."""
+    rng = np.random.default_rng(seed)
+    u = rng.uniform(size=(B, N))
+    fg, ign = u < 0.03, u > 0.9
+    labels = np.where(fg, rng.integers(1, 4, size=(B, N)), 0)
+    p2 = np.array([[721.5377, 0.0, 609.5593, 44.85728],
+                   [0.0, 721.5377, 172.854, 0.2163791],
+                   [0.0, 0.0, 1.0, 0.002745884], [0.0, 0.0, 0.0, 1.0]])
+    f32, i8 = np.float32, np.int8
+    b = {"images": rng.normal(size=(B,) + tuple(crop) + (3,)).astype(f32),
+         "labels": np.where(ign, 3000, labels).astype(np.int32),
+         "labels_fg": fg.astype(i8), "labels_bg": (~fg & ~ign).astype(i8),
+         "labels_ign": ign.astype(i8),
+         "bbox_2d": (rng.normal(size=(B, 4, N)) * 0.5).astype(f32),
+         "bbox_3d": (rng.normal(size=(B, 7, N)) * 0.5).astype(f32),
+         "any_val": np.ones(B, np.int32),
+         "p2_inv": np.stack([np.linalg.inv(p2)] * B).astype(f32)}
+    return {k: torch.from_numpy(v) for k, v in b.items()}
+
+
+def decoded_cam_boxes(model, conf, rois, batch):
+    """The loss's camera-frame boxes [B*N, 7] of the model's predictions and
+    of the batch's targets (through the loss's `decode_3d_t` and
+    `cam_boxes_t`, as `rpn_3d_loss` builds them for the 3D-GIoU branch), the flat fg mask and the fg score, from a forward of `batch`
+    (on the model's device, without autograd)."""
+    from m3dssd_tpu_torch.losses.rpn_loss import cam_boxes_t, decode_3d_t
+
+    dev = next(model.parameters()).device
+    b = {k: v.to(dev) for k, v in batch.items()}
+    with torch.no_grad():
+        out = model(b["images"], packed=b["images"].shape[-1] == 12)
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    decoded = decode_3d_t(f32(rois[:, :5]), f32(conf.anchors),
+                          f32(conf.bbox_means)[0], f32(conf.bbox_stds)[0],
+                          f32(out["bbox_3d"]), f32(b["bbox_3d"]))
+    cams = [cam_boxes_t(d, f32(b["p2_inv"])).transpose(1, 2).reshape(-1, 7)
+            for d in decoded]
+    fg = b["labels_fg"].reshape(-1) > 0
+    score = 1.0 - out["prob_t"][:, 0].float().reshape(-1)
+    return cams[0], cams[1], fg, score
+
+
+def iou3d_card_vs_cpu(pred, tgt, score):
+    """giou_3d (values and gradients), boxes_iou3d and nms_bev on the card
+    against the CPU in float64 on the same boxes; the card's float32 (the
+    loss's type) against the CPU's float64. Returns the errors."""
+    from m3dssd_tpu_torch.ops import iou3d
+
+    def giou_grad(a, b):
+        a = a.clone().requires_grad_()
+        g, i = iou3d.giou_3d(a, b)
+        (1.0 - g).sum().backward()
+        return g.detach().cpu().double(), i.detach().cpu().double(), \
+            a.grad.cpu().double()
+
+    cpu = [t.detach().cpu().double() for t in (pred, tgt)]
+    ref = giou_grad(*cpu)
+    ref_pair = iou3d.boxes_iou3d(cpu[0][:256], cpu[1][:256])
+    ref_nms = iou3d.nms_bev(cpu[0], score.cpu(), NMS_THRESH, NMS_OUT)
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        a, b = (t.detach().to(dtype) for t in (pred, tgt))
+        got = giou_grad(a, b)
+        for name, g, r in zip(("giou", "iou", "dgiou"), got, ref):
+            errs[f"{name}_{str(dtype)[6:]}"] = float(
+                (g - r).abs().max() / max(1.0, float(r.abs().max())))
+        pair = iou3d.boxes_iou3d(a[:256], b[:256]).cpu().double()
+        errs[f"iou3d_{str(dtype)[6:]}"] = float((pair - ref_pair).abs()
+                                                .max())
+        for k in ("giou", "iou", "iou3d"):
+            check(errs[f"{k}_{str(dtype)[6:]}"] <= IOU3D_TOL[dtype],
+                  f"iou3d card vs CPU float64: {k} in {dtype}: {errs}")
+    check(errs["dgiou_float64"] <= IOU3D_TOL[torch.float64]
+          and errs["dgiou_float32"] <= DGIOU_F32_TOL,
+          f"iou3d card vs CPU float64: giou gradient {errs}")
+    idx, valid = iou3d.nms_bev(pred.detach().double(), score, NMS_THRESH,
+                               NMS_OUT)
+    check(torch.equal(idx.cpu(), ref_nms[0])
+          and torch.equal(valid.cpu(), ref_nms[1]),
+          "nms_bev on the card differs from the CPU's")
+    errs["nms_kept"] = int(ref_nms[1].sum())
+    return errs
+
+
+def phase_capabilities(label):
+    """The flagship's train step with every option of the last slice on, at
+    full width on the card: dla34_depth at 512x1760 bs=8 bf16, k-means
+    anchors from the synthetic train split, TrainLoader with photometric
+    distortion, both 3D loss branches; CAP_STEPS steps with host targets and
+    as many with device targets (each launching every shift-DCN kernel once
+    per neck layer), the same step with both lambdas at 0, one more step
+    whose every DCN call is held against the plain version on its own
+    operands (`dcn_calls_vs_plain`), the 3D-GIoU branch alone, ops/iou3d.py
+    on the step's decoded boxes against the CPU in float64, and one float32
+    step on the card against the float64 CPU step at 512x128 bs=2 with
+    every option on. Returns the kernels' launches over the full-width
+    steps."""
+    import copy
+
+    from m3dssd_tpu_torch import anchors as anc
+    from m3dssd_tpu_torch import geometry as geo
+    from m3dssd_tpu_torch.data.augment import Augmentation
+    from m3dssd_tpu_torch.data.loader import TrainLoader
+    from m3dssd_tpu_torch.data.synthetic import SyntheticTrainSet
+    from m3dssd_tpu_torch.models import build
+    from m3dssd_tpu_torch.models.necks import DCN
+    from m3dssd_tpu_torch.ops import iou3d
+    from m3dssd_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+
+    B = CAP_BATCH
+    conf = train_conf(CAP_CROP, B).replace(warmup=0.0, **CAP_OPTIONS)
+    t0 = time.perf_counter()
+    ds = SyntheticTrainSet(conf, CAP_SCENES, seed=11, imW=TRAIN_IM[1],
+                           imH=TRAIN_IM[0])
+    data_s = time.perf_counter() - t0
+    ladder = np.stack([anc.anchor_center(s * r, s, conf.feat_stride)
+                       for s in conf.anchor_scales
+                       for r in conf.anchor_ratios])
+    t0 = time.perf_counter()
+    again = anc.cluster_anchors(conf, ladder, ds.imdb)
+    kmeans_s = time.perf_counter() - t0
+    check(np.array_equal(again, conf.anchors), "k-means anchors differ "
+          "between two runs from one seed")
+    A = conf.anchors.shape[0]
+    check(conf.anchors.shape[1] == 9 and np.isfinite(conf.anchors).all(),
+          f"k-means anchors {conf.anchors.shape}")
+    norm = anc._normalized_gts(conf, ds.imdb)
+    mean_iou = {k: float(geo.iou(a[:, :4], norm[:, :4]).max(0).mean())
+                for k, a in (("kmeans", conf.anchors), ("ladder", ladder))}
+    check(ds.rois.shape[0] == A * int(np.prod(conf.feat_size)),
+          "rois do not follow the clustered anchor count")
+
+    # one CPU build (125 M parameters) serves every model of the phase; a
+    # train build differs from its float32 form only in the compute dtype
+    t0 = time.perf_counter()
+    init_model = build(conf.replace(compute_dtype="float32"), device="cpu",
+                       seed=0, phase="train")
+    build_s = time.perf_counter() - t0
+    n_dcn = sum(isinstance(m, DCN) and m.uses_shift
+                for m in init_model.modules())
+    check(n_dcn == 8, f"dla34_depth's neck has {n_dcn} shift-DCN layers")
+    check(init_model.num_anchors == A, "head width is not the clustered A")
+    model = copy.deepcopy(init_model)
+    model.base.base.compute_dtype = torch.bfloat16
+    model.cuda()
+    state = create_train_state(conf, model, max_iter=10 ** 6)
+    launches = dict.fromkeys(("forward",) + BWD_KERNELS, 0)
+
+    def run(step, batch, lam):
+        reset_counts()
+        stats, s = sync_s(lambda: step(state, batch))
+        n = bwd_counts()
+        for k in launches:
+            launches[k] += n[k]
+        check(all(v == n_dcn for v in n.values()),
+              f"capabilities step launched {n}, expected {n_dcn} of each")
+        stats = {k: float(v) for k, v in stats.items()}
+        bad = [k for k, v in stats.items() if not math.isfinite(v)]
+        check(not bad, f"non-finite stats {bad}: {stats}")
+        if lam:
+            check("loss_bbox3d_proj" in stats and "loss_bbox3d_iou" in stats,
+                  f"3D loss branches missing: {sorted(stats)}")
+            r = stats["loss_bbox3d_iou"] / conf.bbox_3d_iou_lambda
+            check(0.0 <= r <= 2.0, f"loss_bbox3d_iou / lambda = {r}")
+        return stats, 1e3 * s
+
+    torch.cuda.reset_peak_memory_stats()
+    runs, kept = {}, []
+    for name, c in (("host", conf),
+                    ("device", conf.replace(pre_compute_target=False))):
+        d = copy.copy(ds)
+        d.conf, d.transform = c, Augmentation(c)
+        step = make_train_step(c, ds.rois, packed_input=True)
+        loader = TrainLoader(d, B, num_workers=8, seed=1, pack_s2d=True)
+        t0 = time.perf_counter()
+        ms, last = [], None
+        for batch in loader.batches(CAP_STEPS):
+            check(("labels" in batch) == (name == "host"),
+                  f"{name} targets: batch keys {sorted(batch)}")
+            last, t = run(step, batch, True)
+            ms.append(t)
+            if name == "host" and len(kept) < 3:
+                kept.append(batch)
+        runs[name] = {"ms": sorted(ms[2:])[len(ms[2:]) // 2],
+                      "wall_s": time.perf_counter() - t0, "stats": last}
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # the same steps with both lambdas at 0, alternated on the same batches
+    step_on = make_train_step(conf, ds.rois, packed_input=True)
+    c0 = conf.replace(bbox_3d_proj_lambda=0.0, bbox_3d_iou_lambda=0.0)
+    step_off = make_train_step(c0, ds.rois, packed_input=True)
+    ab = {"on": [], "off": []}
+    for batch in kept:
+        ab["on"].append(run(step_on, batch, True)[1])
+        ab["off"].append(run(step_off, batch, False)[1])
+    ab = {k: sorted(v)[len(v) // 2] for k, v in ab.items()}
+
+    # one more step, each of its DCN calls against the plain version on the
+    # card, on that call's operands (the offsets trained by the steps above)
+    _, dcn_calls = dcn_calls_vs_plain(lambda: run(step_on, kept[0], True))
+    kinds = [k for k, _, _ in dcn_calls]
+    check(kinds.count("forward") == n_dcn and kinds.count("backward")
+          == n_dcn, f"spied step made DCN calls {kinds}")
+
+    # the 3D-GIoU branch alone on the step's boxes (every row, as the loss)
+    pred, tgt, fg, score = decoded_cam_boxes(model, conf, ds.rois, kept[0])
+    check(int(fg.sum()) > 0, "no fg anchors in the kept batch")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+
+    def branch():
+        p = pred.clone().requires_grad_()
+        g, _ = iou3d.giou_3d(p, tgt)
+        (1.0 - g).sum().backward()
+        return p.grad
+
+    grad = branch()
+    check(bool(torch.isfinite(grad).all()), "3D-GIoU branch: non-finite "
+          "gradient")
+    giou_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    giou_ms = cuda_ms(branch, 5, warmup=1)
+    rows = pred.shape[0]
+    fg_idx = torch.nonzero(fg).reshape(-1)[:2048]
+    ious = iou3d_card_vs_cpu(pred[fg_idx], tgt[fg_idx], score[fg_idx])
+    del state, model, grad, pred, tgt, kept
+    torch.cuda.empty_cache()
+
+    # float32 on the card against float64 on the CPU, every option on
+    H, W = CAP_CPU_CROP
+    cc = conf.replace(crop_size=[H, W], test_scale=[H, W], batch_size=2,
+                      compute_dtype="float32", weight_decay=0.0)
+    rois = anc.locate_anchors(cc.anchors, cc.feat_size, cc.feat_stride)
+    batch = _cap_batch(rois.shape[0], 2, (H, W), seed=3)
+
+    def make_model(dev, dtype):
+        return copy.deepcopy(init_model).to(dev, dtype)
+
+    errs, own, dcn_grads, stats = card_vs_cpu_step(cc, rois, batch,
+                                                   make_model, False)
+    check("loss_bbox3d_iou" in stats["card"], "card vs CPU step without "
+          "the 3D-GIoU branch")
+
+    log(f"capabilities: dla34_depth {CAP_CROP[0]}x{CAP_CROP[1]} bs={B} bf16 "
+        f"packed, every option on ({label}); {CAP_SCENES} synthetic "
+        f"{TRAIN_IM[0]}x{TRAIN_IM[1]} scenes in {data_s:.1f} s; model "
+        f"built in {build_s:.1f} s; {n_dcn} shift-DCN layers in the neck")
+    log(f"  k-means anchors: {A} (ladder {ladder.shape[0]}), mean IoU with "
+        f"the split's {norm.shape[0]} gts {mean_iou['kmeans']:.4f} (ladder "
+        f"{mean_iou['ladder']:.4f}), {kmeans_s:.3f} s")
+    for name, r in runs.items():
+        log(f"  {CAP_STEPS} steps, {name} targets, distortion on: median of "
+            f"{CAP_STEPS - 2} warm steps {r['ms']:.2f} ms = "
+            f"{B * 1e3 / r['ms']:.2f} im/s; {r['wall_s']:.1f} s with the "
+            "loader; last stats " + ", ".join(
+                f"{k} {v:.4f}" for k, v in sorted(r["stats"].items())))
+    log(f"  peak device memory over the steps {peak_gib:.2f} GiB")
+    log(f"  the same batches, alternated: both lambdas on {ab['on']:.2f} ms,"
+        f" both at 0 {ab['off']:.2f} ms")
+    log("  one more step's shift-DCN calls vs plain on their operands, bf16 "
+        "(B,H,W,Cin->Cout: forward max|diff|/max(1,scale); backward "
+        "relative max|diff| of dx doffset dmask dweight): " + "; ".join(
+            f"{k} {','.join(map(str, sh[:4]))}->{sh[4]} "
+            + " ".join(f"{e:.1e}" for e in errs)
+            for k, sh, errs in dcn_calls))
+    log(f"  3D-GIoU branch alone (giou_3d forward + backward over all "
+        f"{rows} rows): {giou_ms:.2f} ms, {giou_gib:.2f} GiB above its "
+        "inputs")
+    log("  ops/iou3d.py on the card vs CPU float64, the step's decoded fg "
+        f"boxes ({len(fg_idx)}): " + ", ".join(
+            f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in ious.items()))
+    log_card_vs_cpu(f"  train step card (kernels, float32) vs CPU (plain, "
+                    f"float64) at {H}x{W} bs=2, every option on, zero DCN "
+                    "offsets, no weight decay", errs, own, dcn_grads, stats)
+    return launches
 
 
 # --------------------------------------------------------------------------
@@ -2308,11 +2709,13 @@ def main() -> int:
                         train_stats["step_ms"])
     life_launches = timed(phase_run_lifecycle, label)
     timed(phase_upstream, label)
+    cap_launches = timed(phase_capabilities, label)
     bwd = {k: {} for k in BWD_KERNELS}
     for name, n in (("train", train_launches), ("data_parallel",
                                                 dp_launches),
                     ("device_targets", dt_launches),
-                    ("lifecycle", life_launches)):
+                    ("lifecycle", life_launches),
+                    ("capabilities", cap_launches)):
         fwd[name] = n["forward"]
         for k in BWD_KERNELS:
             bwd[k][name] = n[k]

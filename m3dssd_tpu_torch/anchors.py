@@ -1,7 +1,7 @@
 """Anchor templates, their placement on the feature grid, the anchors' 3D
 priors and the whitening statistics of the regression targets (host
-numpy; the port's own copy of the reference package's `anchors.py`, less
-its k-means clustering).
+numpy; the port's own copy of the reference package's `anchors.py`,
+k-means clustering included).
 
 Flattened roi order: row-major spatial, anchor fastest —
 n = (h * W + w) * A + a. The model's head outputs are flattened in the same
@@ -19,6 +19,11 @@ from typing import Optional
 import numpy as np
 
 from . import geometry as geo
+
+# k-means: the most rounds of one run at a fixed anchor count, and the least
+# mean-IoU gain for which `expand_anchors` adds another anchor
+KMEANS_MAX_ROUNDS = 1000
+EXPAND_STOP_DT = 0.0025
 
 
 def anchor_center(w, h, stride):
@@ -139,9 +144,8 @@ def generate_anchors(conf, imdb, cache_folder: Optional[str] = None):
     anchors = np.stack(templates, axis=0)
 
     if conf.cluster_anchors:
-        raise NotImplementedError("k-means anchor clustering "
-                                  "(conf.cluster_anchors) is not ported")
-    if conf.has_3d:
+        anchors = cluster_anchors(conf, anchors, imdb)
+    elif conf.has_3d:
         norm_gts = _normalized_gts(conf, imdb)
         anchors = _assign_3d_priors(anchors, norm_gts)
 
@@ -152,6 +156,144 @@ def generate_anchors(conf, imdb, cache_folder: Optional[str] = None):
             pickle.dump(anchors, f)
     conf.anchors = anchors
     return anchors
+
+
+def _kmeans_rounds(anchors, norm_gts, stride, rng):
+    """One IoU-metric k-means run at a fixed anchor count.
+
+    Unused anchors are zeroed then re-seeded as load-weighted random convex
+    combinations of the used anchors (the reference's redistribution step).
+    Returns (best_valid_anchors, best_mean_iou, best_coverage@0.5).
+    """
+    A = anchors.shape[0]
+    best_iou, best, best_cov = -1.0, anchors.copy(), 0.0
+    last, dif, rnd = 0.0, 1.0, 0
+    w_all = norm_gts[:, 2] - norm_gts[:, 0] + 1
+    h_all = norm_gts[:, 3] - norm_gts[:, 1] + 1
+
+    while rnd < KMEANS_MAX_ROUNDS and dif > 0.0:
+        ols = geo.iou(anchors[:, :4], norm_gts[:, :4])      # [A, G]
+        assign = np.argmax(ols, axis=0)
+        gt_ols = np.max(ols, axis=0)
+        cur = float(gt_ols.mean())
+
+        counts = np.bincount(assign, minlength=A)
+        for aind in range(A):
+            sel = assign == aind
+            if counts[aind] > 0:
+                anchors[aind, :4] = anchor_center(
+                    w_all[sel].mean(), h_all[sel].mean(), stride)
+                anchors[aind, 4:9] = norm_gts[sel, 4:9].mean(axis=0)
+            else:
+                anchors[aind, :] = 0.0          # unused, reseed below
+
+        anchors = np.nan_to_num(anchors)
+        valid = ~np.all(anchors == 0, axis=1)
+        vinds = np.flatnonzero(valid)
+
+        if cur > best_iou:
+            best_iou = cur
+            best = anchors[valid].copy()
+            best_cov = float(np.mean(gt_ols > 0.5))
+
+        if not valid.all():
+            # split load-heavy anchors: random convex combination weighted by
+            # each used anchor's assignment share
+            share = counts[vinds] / max(counts[vinds].sum(), 1)
+            for aind in np.flatnonzero(~valid):
+                multi = 0.5 * rng.random(len(vinds)) + share
+                multi /= multi.sum()
+                anchors[aind] = anchors[vinds].T @ multi
+            logging.info("cluster_anchors: round %d reseeded %d unused "
+                         "anchors", rnd, int((~valid).sum()))
+
+        dif = cur - last
+        last = cur
+        rnd += 1
+    return best, best_iou, best_cov
+
+
+def _init_anchor_templates(conf, count, norm_gts):
+    """Anchor (re)initialization at a given count for one expansion round.
+
+    `even_anchors`: slice the height-sorted gts into `count` equal groups and
+    seed each anchor with its group's mean w/h.
+    Otherwise: geometric height ladder x aspect ratios, with the scale count
+    chosen so scales x ratios == count (the reference's else-branch indexes
+    out of bounds unless len(ratios) == 1)."""
+    stride = conf.feat_stride
+    templates = np.zeros([count, 9])
+    if conf.even_anchors:
+        order = np.argsort(norm_gts[:, 3] - norm_gts[:, 1] + 1)
+        g = norm_gts[order]
+        n = max(g.shape[0] // count, 1)
+        for aind in range(count):
+            grp = g[aind * n:aind * n + n]
+            if grp.shape[0] == 0:
+                grp = g[-n:]
+            w = (grp[:, 2] - grp[:, 0] + 1).mean()
+            h = (grp[:, 3] - grp[:, 1] + 1).mean()
+            templates[aind, :4] = anchor_center(w, h, stride)
+        return templates
+    ratios = list(conf.anchor_ratios)
+    n_scales = max(count // len(ratios), 1)
+    base = (conf.max_gt_h / conf.min_gt_h) ** (1.0 / max(n_scales - 1, 1))
+    aind = 0
+    for i in range(n_scales):
+        h = conf.min_gt_h * (base ** i)
+        for r in ratios:
+            if aind >= count:
+                break
+            templates[aind, :4] = anchor_center(h * r, h, stride)
+            aind += 1
+    # count not divisible by len(ratios): fill the tail with the largest scale
+    while aind < count:
+        templates[aind, :4] = anchor_center(
+            conf.max_gt_h * ratios[aind % len(ratios)], conf.max_gt_h, stride)
+        aind += 1
+    return templates
+
+
+def cluster_anchors(conf, anchors, imdb):
+    """IoU-metric k-means over gt boxes with optional even-distribution
+    seeding and anchor-count expansion.
+
+    `conf.even_anchors`: seed anchors from equal height-sorted gt slices.
+    `conf.expand_anchors` (> current count): after each converged run, add
+    one anchor and re-run while the mean-IoU gain exceeds `EXPAND_STOP_DT`;
+    the best configuration across all counts is returned. 3D prior tails are
+    cluster means throughout.
+    """
+    norm_gts = _normalized_gts(conf, imdb)
+    if norm_gts.shape[0] == 0:
+        return anchors
+
+    rng = np.random.default_rng(conf.rng_seed)
+    A0 = anchors.shape[0]
+    target = int(conf.expand_anchors) if conf.expand_anchors else A0
+
+    best_iou, best, best_cov = -1.0, None, 0.0
+    expand_last = 0.0
+    count = A0
+    cur9 = np.concatenate([anchors[:, :4], np.zeros([A0, 5])], axis=1)
+    while True:
+        if conf.even_anchors or count > A0:
+            cur9 = _init_anchor_templates(conf, count, norm_gts)
+        run_best, run_iou, run_cov = _kmeans_rounds(
+            cur9.copy(), norm_gts, conf.feat_stride, rng)
+        if run_iou > best_iou:
+            best_iou, best, best_cov = run_iou, run_best, run_cov
+        logging.info("cluster_anchors: count=%d mean_iou=%.4f coverage=%.4f",
+                     count, run_iou, run_cov)
+        expand_dif = best_iou - expand_last
+        expand_last = best_iou
+        if count < target and expand_dif > EXPAND_STOP_DT:
+            count += 1
+        else:
+            break
+    logging.info("cluster_anchors: final_iou=%.4f final_coverage=%.4f "
+                 "anchors=%d", best_iou, best_cov, best.shape[0])
+    return best
 
 
 def compute_bbox_stats(conf, imdb, cache_folder: Optional[str] = None):

@@ -1,12 +1,13 @@
 """Image transforms (numpy, no OpenCV): the eval chain (float conversion,
-zero padding to the test size, normalisation) and the train chain (random
-mirror, random scale-and-shift warp to the crop size, normalisation).
+zero padding to the test size, normalisation) and the train chain
+(photometric distortion, random mirror, random scale-and-shift warp to the
+crop size, normalisation).
 
 Each transform takes and returns (image HxWxC float32 BGR, imobj), so the
 chain composes like the reference package's; the train transforms draw from
-the `rng` (a numpy Generator) the loader passes per sample. The warp is the
-port's own form of OpenCV's `warpAffine` (bilinear, zero border): the
-machine with the card has no OpenCV.
+the `rng` (a numpy Generator) the loader passes per sample. The warp and the HSV
+conversions are the port's own forms of OpenCV's `warpAffine` (bilinear,
+zero border) and `cvtColor`: the machine with the card has no OpenCV.
 """
 
 from __future__ import annotations
@@ -206,23 +207,98 @@ class RandomTransform:
         return im, imobj
 
 
+def bgr_to_hsv(image):
+    """BGR -> HSV on float32 images, OpenCV's float convention (the port's
+    own form of `cv2.cvtColor(..., COLOR_BGR2HSV)`): H in degrees [0, 360),
+    S in [0, 1], V on the input's scale."""
+    b, g, r = image[..., 0], image[..., 1], image[..., 2]
+    eps = np.float32(np.finfo(np.float32).eps)
+    v = np.maximum(np.maximum(r, g), b)
+    vmin = np.minimum(np.minimum(r, g), b)
+    diff = v - vmin
+    s = diff / (np.abs(v) + eps)
+    k = np.float32(60.0) / (diff + eps)
+    h = np.where(v == r, (g - b) * k,
+                 np.where(v == g, (b - r) * k + np.float32(120.0),
+                          (r - g) * k + np.float32(240.0)))
+    h = np.where(h < 0, h + np.float32(360.0), h)
+    return np.stack([h, s, v], axis=-1).astype(np.float32)
+
+
+def hsv_to_bgr(hsv):
+    """HSV -> BGR on float32 images, the inverse of `bgr_to_hsv` (OpenCV's
+    `COLOR_HSV2BGR` float form: six sectors of 60 degrees)."""
+    h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+    h = np.fmod(h * np.float32(6.0 / 360.0), np.float32(6.0))
+    h = np.where(h < 0, h + np.float32(6.0), h)
+    sector = np.floor(h)
+    h = h - sector
+    sector = sector.astype(np.int64)
+    bad = (sector < 0) | (sector >= 6)
+    sector = np.where(bad, 0, sector)
+    h = np.where(bad, np.float32(0.0), h)
+    tab = np.stack([v, v * (1 - s), v * (1 - s * h), v * (1 - s * (1 - h))],
+                   axis=-1)
+    sector_data = np.array([[1, 3, 0], [1, 0, 2], [3, 0, 1],
+                            [0, 2, 1], [0, 1, 3], [2, 1, 0]])
+    out = np.take_along_axis(tab, sector_data[sector], axis=-1)
+    grey = (s == 0)[..., None]
+    return np.where(grey, v[..., None], out).astype(np.float32)
+
+
+class PhotometricDistort:
+    """Brightness, contrast, saturation and hue jitter, each with
+    probability `distort_prob` (off in every stock config).
+
+    Each of the five steps draws `rng.random()` and fires when it is
+    `<= distort_prob`, and draws its factor only when it fires, so a
+    sample's later draws (mirror, warp) follow the same sequence as the
+    reference package's. Only the input of the BGR -> HSV conversion is
+    clipped to [0, 255]. Takes 3-channel images only, as OpenCV's
+    conversion does.
+    """
+
+    def __init__(self, distort_prob, rng=None):
+        self.p = distort_prob
+        self.rng = rng if rng is not None else np.random
+
+    def __call__(self, image, imobj=None, rng=None):
+        if image.ndim != 3 or image.shape[2] != 3:
+            raise ValueError("photometric distortion takes a 3-channel BGR "
+                             f"image, got shape {image.shape}")
+        rng = rng if rng is not None else self.rng
+        image = image.copy()
+        if rng.random() <= self.p:  # brightness
+            image += rng.uniform(-32, 32)
+        if rng.random() <= self.p:  # contrast
+            image *= rng.uniform(0.5, 1.5)
+        hsv = bgr_to_hsv(np.clip(image, 0, 255))
+        if rng.random() <= self.p:  # saturation
+            hsv[:, :, 1] *= rng.uniform(0.5, 1.5)
+        if rng.random() <= self.p:  # hue
+            hsv[:, :, 0] = (hsv[:, :, 0] + rng.uniform(-18, 18)) % 360.0
+        image = hsv_to_bgr(hsv)
+        if rng.random() <= self.p:  # contrast (second chance)
+            image *= rng.uniform(0.5, 1.5)
+        return image, imobj
+
+
 class Augmentation:
-    """The train chain: float, random mirror, random warp to the crop size,
-    normalise. Photometric distortion (conf.distort_prob > 0, off in every
-    stock config) is not ported and raises."""
+    """The train chain: float, photometric distortion (conf.distort_prob >
+    0), random mirror, random warp to the crop size, normalise."""
 
     def __init__(self, conf, rng=None):
+        steps = [ConvertToFloat()]
         if conf.distort_prob > 0:
-            raise NotImplementedError("photometric distortion "
-                                      "(conf.distort_prob > 0) is not ported")
-        self.augment = Compose([
-            ConvertToFloat(),
+            steps.append(PhotometricDistort(conf.distort_prob, rng))
+        steps += [
             RandomMirror(conf.mirror_prob, rng),
             RandomTransform(conf.trans_prob, conf.shift, conf.scale_trans,
                             dst_h=conf.crop_size[0], dst_w=conf.crop_size[1],
                             rng=rng),
             Normalize(conf.image_means, conf.image_stds),
-        ])
+        ]
+        self.augment = Compose(steps)
 
     def __call__(self, img, imobj, rng=None):
         """rng: the per-sample numpy Generator the loader passes."""

@@ -63,6 +63,26 @@ def read_kitti_cal(calfile: str) -> np.ndarray:
     return p2
 
 
+def read_kitti_poses(posefile: str) -> List[np.ndarray]:
+    """Parse a KITTI odometry pose file into padded 4x4 matrices: each line
+    of 12 numbers is a row-major 3x4 pose; other lines are skipped."""
+    poses = []
+    with open(posefile, "r") as f:
+        for line in f:
+            vals = line.split()
+            if len(vals) != 12:
+                continue
+            try:
+                row = [float(v) for v in vals]
+            except ValueError:
+                continue
+            p = np.zeros([4, 4], dtype=float)
+            p[:3, :] = np.array(row).reshape(3, 4)
+            p[3, 3] = 1.0
+            poses.append(p)
+    return poses
+
+
 _LABEL_RE = re.compile(
     r"([a-zA-Z\-\?\_]+)" + r"\s+(%s)" % _FLOAT * 14 + r"\s*((%s)?)\s*$" % _FLOAT)
 
@@ -129,8 +149,8 @@ def parse_kitti_label(lines, p2: np.ndarray,
     return gts
 
 
-_PHASE_DIR = {"train": "training", "validation": "validation",
-              "test": "testing"}
+_PHASE_DIR = {"train": "training", "val_train": "training",
+              "validation": "validation", "test": "testing"}
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 
 
@@ -163,12 +183,14 @@ def _imread(path: str) -> np.ndarray:
 
 def build_imdb(conf, data_root: str, phase: str,
                cache_folder: Optional[str] = None) -> List[AttrDict]:
-    """Scan the eval split `phase` ("validation" or "test") of a
-    KITTI-layout dataset into a list of per-image AttrDicts, cached as a
-    pickle in `cache_folder` when given."""
+    """Scan the split `phase` of a KITTI-layout dataset into a list of
+    per-image AttrDicts (with the labels in the train phases), cached as a
+    pickle in `cache_folder` when given. "val_train" reads the train split
+    and shares its cache."""
     if phase not in _PHASE_DIR:
-        raise ValueError(f"phase {phase!r}: the port reads the eval phases "
-                         f"{sorted(_PHASE_DIR)}")
+        raise ValueError(f"phase {phase!r}: one of {sorted(_PHASE_DIR)}")
+    if phase == "val_train":
+        phase = "train"
     fname = phase + "_imdb.pkl"
     if cache_folder and os.path.exists(os.path.join(cache_folder, fname)):
         logging.info("Preloading imdb.")
@@ -257,7 +279,8 @@ class Kitti3DDataset:
     """Dataset over a KITTI-layout split: `ds[i]` (or `ds.sample(i, rng)`)
     is the sample of image i.
 
-    Eval phases ("validation", "test") preprocess deterministically; their
+    Eval phases ("validation", "test", and "val_train": the train split
+    with the eval preprocessing) preprocess deterministically; their
     decoded samples are cached up to conf.eval_image_cache_mb MiB (0 turns
     the cache off), so a second pass skips decode, pad and normalise. The
     "train" phase builds anchors and whitening stats when conf has none,

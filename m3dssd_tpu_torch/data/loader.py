@@ -177,3 +177,17 @@ class TrainLoader:
                     q.get(timeout=0.1)
                 except queue.Empty:
                     pass
+
+
+class EvalLoader:
+    """Sequential bs=1 iterator over an eval dataset's samples."""
+
+    def __init__(self, dataset):
+        self.dataset = dataset
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __iter__(self):
+        for i in range(len(self.dataset)):
+            yield self.dataset[i]

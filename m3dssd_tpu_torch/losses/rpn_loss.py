@@ -13,12 +13,14 @@ The port's copy of the reference package's `losses/rpn_loss.py`
     anchors;
   * SmoothL1 on the 7 whitened 3D parameters, mean over sampled fg;
   * -log IoU between the decoded predicted and target 2D boxes;
-  * optional focal down-weighting (1 - p)^gamma and the 2D SmoothL1 branch.
+  * optional focal down-weighting (1 - p)^gamma and the 2D SmoothL1 branch;
+  * optional, with the batch's `p2_inv`: SmoothL1 between the predicted and
+    target boxes' camera-frame centers (`bbox_3d_proj_lambda`) and 1 - 3D
+    GIoU between the boxes (`bbox_3d_iou_lambda`, `ops/iou3d.py`), both
+    means over sampled fg, the target side outside autograd.
 
 Everything is a fixed-shape tensor op: no host sync, so the stats stay on
-the device until a caller reads them. The 3D-projection and 3D-IoU
-branches (`bbox_3d_proj_lambda`, `bbox_3d_iou_lambda`, 0 in every stock
-config) are not ported and raise.
+the device until a caller reads them.
 
 Under a data axis (`group`, `parallel/mesh.py`) each rank holds its rows of
 the global batch. The batch-wide counts (fg_total, bg_total) and the
@@ -36,8 +38,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from ..ops.boxes import (bbox_transform_inv_t, clip, decode_bbox_3d_t,
-                         iou_list_t, masked_mean, smooth_l1)
+from ..ops.boxes import (bbox_transform_inv_t, clip, convert_alpha_to_rot,
+                         decode_bbox_3d_t, iou_list_t, masked_mean,
+                         smooth_l1)
+from ..ops.iou3d import giou_3d
 
 IGN_FLAG = 3000
 
@@ -128,6 +132,27 @@ def argmax_class_t(v_t):
     return pred
 
 
+def decode_3d_t(rois, anchors, means, stds, *deltas):
+    """Each whitened 3D delta [B,7,N] decoded against rois [N,5] and the 3D
+    priors of their anchors [A,9] -> [B,7,N] (x2d, y2d, z, w3d, h3d, l3d,
+    alpha); means/stds [11]."""
+    src3d_t = anchors[rois[:, 4].to(torch.int64)][:, 4:9].t()   # [5, N]
+    return [decode_bbox_3d_t(rois.t(), d, src3d_t, means, stds)
+            for d in deltas]
+
+
+def cam_boxes_t(d, p2_inv):
+    """Decoded boxes d [B,7,N] (x2d, y2d, z, w3d, h3d, l3d, alpha) ->
+    camera-frame boxes [B,7,N] = [x, y (bottom), z, h, w, l, ry] through
+    p2_inv [B,4,4]."""
+    x2d, y2d, z = d[:, 0], d[:, 1], d[:, 2]
+    pts = torch.stack([x2d * z, y2d * z, z, torch.ones_like(z)], dim=1)
+    c3 = torch.einsum("bij,bjn->bin", p2_inv, pts)         # [B,4,N]
+    ry = convert_alpha_to_rot(d[:, 6], c3[:, 2], c3[:, 0])
+    return torch.stack([c3[:, 0], c3[:, 1] + d[:, 4] / 2, c3[:, 2],
+                        d[:, 4], d[:, 3], d[:, 5], ry], dim=1)
+
+
 def rpn_3d_loss(outputs: Dict[str, torch.Tensor],
                 batch: Dict[str, torch.Tensor], rois: torch.Tensor,
                 anchors: torch.Tensor, bbox_means: torch.Tensor,
@@ -145,9 +170,6 @@ def rpn_3d_loss(outputs: Dict[str, torch.Tensor],
     state on every rank) and takes this rank's rows, so the sampling does
     not depend on the split.
     """
-    if cfg.bbox_3d_proj_lambda or cfg.bbox_3d_iou_lambda:
-        raise NotImplementedError(
-            "the 3D-projection and 3D-IoU loss branches are not ported")
     f32 = torch.float32
     cls_t = outputs["cls_t"].to(f32)                        # [B,C,N]
     prob_t = outputs["prob_t"].to(f32).detach()
@@ -261,16 +283,38 @@ def rpn_3d_loss(outputs: Dict[str, torch.Tensor],
         loss = loss + loss_iou
         stats["loss_iou"] = loss_iou
 
+    # the decode also feeds the projection / 3D-IoU branches below
+    need_decode = (not cfg.light_stats or cfg.bbox_3d_proj_lambda
+                   or cfg.bbox_3d_iou_lambda)
+    if need_decode:
+        dec, dec_tar = decode_3d_t(rois, anchors, means, stds, bbox_3d,
+                                   batch["bbox_3d"].to(f32))
     if not cfg.light_stats:
-        tracker = rois[:, 4].to(torch.int64)
-        src3d_t = anchors[tracker][:, 4:9].t()           # [5, N]
-        dec = decode_bbox_3d_t(rois_t, bbox_3d, src3d_t, means, stds)
-        dec_tar = decode_bbox_3d_t(rois_t, batch["bbox_3d"].to(f32), src3d_t,
-                                   means, stds)
         stats["err_z"] = masked_mean(torch.abs(dec[:, 2] - dec_tar[:, 2]),
                                      bbox_weights, n_fg_sel)
         stats["err_ry"] = masked_mean(torch.abs(dec[:, 6] - dec_tar[:, 6]),
                                       bbox_weights, n_fg_sel)
+
+    # ---------------------- 3D projection / rotated 3D GIoU loss branches
+    if (cfg.bbox_3d_proj_lambda or cfg.bbox_3d_iou_lambda) \
+            and "p2_inv" in batch:
+        p2_inv = batch["p2_inv"].to(f32)                 # [B,4,4]
+        cams = cam_boxes_t(dec, p2_inv)
+        cams_tar = cam_boxes_t(dec_tar, p2_inv).detach()
+        if cfg.bbox_3d_proj_lambda:
+            proj_l1 = smooth_l1(cams[:, 0:3], cams_tar[:, 0:3]).sum(1)
+            loss_proj = masked_mean(proj_l1, bbox_weights, n_fg_sel) \
+                * cfg.bbox_3d_proj_lambda
+            loss = loss + loss_proj
+            stats["loss_bbox3d_proj"] = loss_proj
+        if cfg.bbox_3d_iou_lambda:
+            # every row, weighted afterwards, as the reference computes it
+            g, _ = giou_3d(cams.transpose(1, 2).reshape(-1, 7),
+                           cams_tar.transpose(1, 2).reshape(-1, 7))
+            loss_giou = masked_mean((1.0 - g).reshape(B, N), bbox_weights,
+                                    n_fg_sel) * cfg.bbox_3d_iou_lambda
+            loss = loss + loss_giou
+            stats["loss_bbox3d_iou"] = loss_giou
 
     stats["loss"] = loss
     stats = {k: v.detach() for k, v in stats.items()}

@@ -1,4 +1,6 @@
-"""ANAB: the asymmetric non-local attention block on the depth branch.
+"""ANAB: the asymmetric non-local attention block on the depth branch, and
+the non-local modules no config builds: NLUp (cross-resolution position
+attention) and NLPM (ANAB without the spatial gates).
 
 The query stays at full resolution; keys and values are pyramid-pooled to
 S = sum(s^2) tokens (337 for sizes 1/4/8/16), so attention costs
@@ -13,7 +15,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from .layers import adaptive_avg_pool2d, conv2d
+from .layers import adaptive_avg_pool2d, batch_norm, conv2d
 
 
 def papa_pool(feats, atten: Optional[torch.Tensor], sizes: Sequence[int]):
@@ -55,3 +57,67 @@ class ANAB(nn.Module):
         att = torch.softmax(att.to(torch.float32), dim=-1).to(x.dtype)
         out = torch.matmul(att, value)                            # [B,HW,C]
         return out.reshape(B, H, W, C).permute(0, 3, 1, 2) + x
+
+
+def _tokens(x):
+    """[B, C, H, W] -> [B, H*W, C], row-major positions."""
+    return x.flatten(2).transpose(1, 2)
+
+
+class NLUp(nn.Module):
+    """Cross-resolution position attention between a query map q [B, Cq,
+    qh, qw] and a (possibly coarser) value map v [B, Cv, vh, vw]: full
+    O(qh*qw x vh*vw) attention over BatchNorm-ed queries and keys, softmax
+    in float32. `v_channels != q_channels` adds 1x1 key and value convs."""
+
+    def __init__(self, q_channels: int, v_channels: int):
+        super().__init__()
+        if v_channels != q_channels:
+            self.k_conv = conv2d(v_channels, q_channels, 1, bias=False)
+            self.v_conv = conv2d(v_channels, q_channels, 1, bias=False)
+        else:
+            self.k_conv = self.v_conv = None
+        self.q_bn = batch_norm(q_channels)
+        self.k_bn = batch_norm(q_channels)
+
+    def forward(self, q, v):
+        B, C, qh, qw = q.shape
+        if self.k_conv is not None:
+            key, value = self.k_conv(v), self.v_conv(v)
+        else:
+            key, value = v, v
+        qf = _tokens(self.q_bn(q))
+        kf = _tokens(self.k_bn(key))
+        att = torch.matmul(qf, kf.transpose(1, 2))            # [B, Q, S]
+        att = torch.softmax(att.to(torch.float32), dim=-1).to(q.dtype)
+        out = torch.matmul(att, _tokens(value))               # [B, Q, C]
+        return out.transpose(1, 2).reshape(B, C, qh, qw).contiguous(
+            memory_format=torch.channels_last)
+
+
+class NLPM(nn.Module):
+    """Non-local pyramid module: ANAB's pyramid-pooled attention without the
+    spatial gates, with its own key and output widths (`residual` needs
+    out_features == channels)."""
+
+    def __init__(self, channels: int, out_features: int, key_features: int,
+                 psp_sizes: Sequence[int] = (1, 4, 8, 16),
+                 residual: bool = True):
+        super().__init__()
+        self.psp_sizes = tuple(psp_sizes)
+        self.residual = residual
+        self.Conv_0 = conv2d(channels, key_features, 1, bias=False)
+        self.Conv_1 = conv2d(channels, key_features, 1, bias=False)
+        self.Conv_2 = conv2d(channels, out_features, 1, bias=False)
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        q = _tokens(self.Conv_0(x))
+        k = papa_pool(self.Conv_1(x), None, self.psp_sizes)
+        v = papa_pool(self.Conv_2(x), None, self.psp_sizes)
+        att = torch.softmax(torch.matmul(q, k.transpose(1, 2))
+                            .to(torch.float32), dim=-1).to(x.dtype)
+        out = torch.matmul(att, v)
+        out = out.transpose(1, 2).reshape(B, -1, H, W).contiguous(
+            memory_format=torch.channels_last)
+        return out + x if self.residual else out

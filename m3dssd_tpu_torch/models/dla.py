@@ -1,9 +1,12 @@
 """Deep Layer Aggregation backbones (NCHW, channels_last).
 
-BasicBlock / Bottleneck blocks, recursive Tree/Root aggregation and the
-dla34 / dla60 / dla102 / dla102x variants. The stem is the plain 7x7 conv at
-full resolution; images may also arrive space-to-depth packed and are
-unpacked by `depth_to_space` first. The parameters are the same either way.
+BasicBlock / DepthBlock / Bottleneck blocks, recursive Tree/Root
+aggregation and the dla34 / dla34_depth / dla60 / dla102 / dla102x
+variants. dla34_depth's blocks are row-banded (`LocalConv2d`, 16 bands in
+levels 2-5), so its input height must be a multiple of 16 x 32 = 512. The
+stem is the plain 7x7 conv at full resolution; images may also arrive
+space-to-depth packed and are unpacked by `depth_to_space` first. The
+parameters are the same either way.
 """
 
 from __future__ import annotations
@@ -14,7 +17,8 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from .layers import ConvBNAct, batch_norm, conv2d, leaky_relu, max_pool
+from .layers import (ConvBNAct, LocalConv2d, batch_norm, conv2d, leaky_relu,
+                     max_pool)
 
 
 class BasicBlock(nn.Module):
@@ -32,6 +36,23 @@ class BasicBlock(nn.Module):
         if residual is None:
             residual = x
         return leaky_relu(self.ConvBNAct_1(self.ConvBNAct_0(x)) + residual)
+
+
+class DepthBlock(nn.Module):
+    """BasicBlock whose second conv is row-banded (`LocalConv2d`)."""
+
+    def __init__(self, cin: int, planes: int, stride: int = 1,
+                 dilation: int = 1, num_rows: int = 16):
+        super().__init__()
+        self.ConvBNAct_0 = ConvBNAct(cin, planes, 3, stride, dilation)
+        self.LocalConv2d_0 = LocalConv2d(planes, num_rows, planes, 3)
+        self.BatchNorm_0 = batch_norm(planes)
+
+    def forward(self, x, residual=None):
+        if residual is None:
+            residual = x
+        out = self.BatchNorm_0(self.LocalConv2d_0(self.ConvBNAct_0(x)))
+        return leaky_relu(out + residual)
 
 
 class Bottleneck(nn.Module):
@@ -199,6 +220,9 @@ DLA_VARIANTS = {
     "dla34": dict(levels=[1, 1, 1, 2, 2, 1],
                   channels=[16, 32, 64, 128, 256, 512],
                   block=BasicBlock, residual_root=False),
+    "dla34_depth": dict(levels=[1, 1, 1, 2, 2, 1],
+                        channels=[16, 32, 64, 128, 256, 512],
+                        block=DepthBlock, residual_root=False),
     "dla60": dict(levels=[1, 1, 1, 2, 3, 1],
                   channels=[16, 32, 128, 256, 512, 1024],
                   block=Bottleneck, residual_root=False),

@@ -128,6 +128,45 @@ class ConvBNAct(nn.Module):
         return leaky_relu(x) if self.act else x
 
 
+def fold_bands(x, num_rows: int, pad: int):
+    """Overlapping row bands of x [B, C, H, W], zero-padded by `pad` on
+    each side, folded band-major into channels: [B, r*C, t+2p, W+2p] with
+    t = H / r (channel i*C + c is band i's channel c)."""
+    B, C, H, W = x.shape
+    r = num_rows
+    t = H // r
+    if t * r != H:
+        raise ValueError(f"H={H} not divisible by num_rows={r}")
+    xp = F.pad(x, (pad, pad, pad, pad))
+    bands = torch.stack([xp[:, :, i * t:i * t + t + 2 * pad]
+                         for i in range(r)], dim=1)
+    return bands.reshape(B, r * C, t + 2 * pad, W + 2 * pad).contiguous(
+        memory_format=torch.channels_last)
+
+
+class LocalConv2d(nn.Module):
+    """Row-banded ("depth-aware") convolution: the image is split into
+    `num_rows` horizontal bands, each with its own k x k kernel and bias.
+    The bands fold into channel groups (band-major) and run as one grouped
+    convolution; the kernel [r*F, C, k, k] holds band i's in rows
+    i*F .. (i+1)*F - 1."""
+
+    def __init__(self, cin: int, num_rows: int, features: int,
+                 kernel: int = 3):
+        super().__init__()
+        self.num_rows = num_rows
+        self.pad = kernel // 2
+        self.Conv_0 = Conv2d(num_rows * cin, num_rows * features, kernel,
+                             padding=0, groups=num_rows, bias=True)
+
+    def forward(self, x):
+        r = self.num_rows
+        y = self.Conv_0(fold_bands(x, r, self.pad))       # [B, r*F, t, W]
+        B, RF, t, W = y.shape
+        return y.reshape(B, r, RF // r, t, W).transpose(1, 2).reshape(
+            B, RF // r, r * t, W).contiguous(memory_format=torch.channels_last)
+
+
 def bilinear_upsample_kernel(f: int, channels: int) -> torch.Tensor:
     """Depthwise ConvTranspose2d weight [C, 1, 2f, 2f] initialised to
     bilinear interpolation."""

@@ -1,4 +1,5 @@
-"""DLA aggregation necks: DCN, DeformConv, IDAUp, DLAUp, DLASeg.
+"""DLA aggregation necks: DCN, DeformConv, DeformLocConv, IDAUp, DLAUp,
+DLASeg.
 
 Upsampling merges the deep levels into the stride-8 map; the projection and
 node convs are deformable (DCNv2 with learned offsets) when `use_dcn` is on,
@@ -15,9 +16,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..ops.dcn import dcn_v2, dcn_v2_shift
+from ..ops.dcn import bilinear_sample, dcn_v2, dcn_v2_shift
 from .dla import make_dla
-from .layers import BilinearUpsample, batch_norm, conv2d, leaky_relu
+from .layers import (BilinearUpsample, Conv2d, batch_norm, conv2d,
+                     fold_bands, leaky_relu)
 
 
 class DCN(nn.Module):
@@ -74,6 +76,60 @@ class DeformConv(nn.Module):
 
     def forward(self, x):
         return leaky_relu(self.BatchNorm_0(self.DCN_0(x)))
+
+
+class DeformLocConv(nn.Module):
+    """Row-banded ("depth-aware") deformable conv -> BN -> LeakyReLU: each
+    of `num_rows` horizontal bands has its own learned offsets, mask and
+    weights. The offsets and mask come from one grouped conv over the
+    band-major channel-folded bands (zero-initialised, so the layer starts
+    as 0.5x a per-band plain conv); the bands then sample as a batch
+    through `ops.dcn.bilinear_sample` and multiply their own weight
+    `[r, KK*C, F]` (row k*C + c: tap k, channel c). No config builds it.
+    """
+
+    def __init__(self, cin: int, features: int, num_rows: int,
+                 kernel: int = 3):
+        super().__init__()
+        self.num_rows, self.kernel = num_rows, kernel
+        KK = kernel * kernel
+        self.conv_offset_mask = Conv2d(num_rows * cin, num_rows * 3 * KK,
+                                       kernel, padding=0, groups=num_rows)
+        self.weight = nn.Parameter(torch.empty(num_rows, KK * cin, features))
+        self.bias = nn.Parameter(torch.zeros(num_rows, features))
+        self.BatchNorm_0 = batch_norm(features)
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        r, K = self.num_rows, self.kernel
+        KK, pad, t = K * K, K // 2, H // r
+        F_ = self.weight.shape[-1]
+        folded = fold_bands(x, r, pad)                  # [B, r*C, t+2p, W+2p]
+        om = self.conv_offset_mask(folded).reshape(B, r, 3 * KK, t, W)
+        om = om.permute(0, 1, 3, 4, 2).reshape(B * r, t, W, 3 * KK)
+        f32 = torch.float32
+        o_y, o_x = om[..., :KK].to(f32), om[..., KK:2 * KK].to(f32)
+        mask = torch.sigmoid(om[..., 2 * KK:])
+        xb = folded.reshape(B, r, C, t + 2 * pad, W + 2 * pad).permute(
+            0, 1, 3, 4, 2).reshape(B * r, t + 2 * pad, W + 2 * pad, C)
+        dev = x.device
+        ys = torch.arange(t, dtype=f32, device=dev)
+        xs = torch.arange(W, dtype=f32, device=dev)
+        taps = torch.arange(K, dtype=f32, device=dev)
+        tap_y = taps.repeat_interleave(K)
+        tap_x = taps.repeat(K)
+        py = ys[None, :, None, None] + tap_y + o_y
+        px = xs[None, None, :, None] + tap_x + o_x
+        sampled = bilinear_sample(xb, py, px)           # [B*r,t,W,KK,C]
+        sampled = sampled * mask[..., None].to(x.dtype)
+        cols = sampled.reshape(B, r, t * W, KK * C)
+        acc = torch.promote_types(x.dtype, f32)
+        y = torch.einsum("brnk,rko->brno", cols.to(acc),
+                         self.weight.to(x.dtype).to(acc))
+        y = (y + self.bias.to(acc)[None, :, None, :]).to(x.dtype)
+        y = y.reshape(B, H, W, F_).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        return leaky_relu(self.BatchNorm_0(y))
 
 
 class PlainConv(nn.Module):

@@ -27,7 +27,7 @@ from .align import CenterAlign, ShapeAlign, confident_topm
 from .attention import ANAB
 from .layers import BatchNorm2d, BilinearUpsample, batch_norm, \
     bilinear_upsample_kernel, conv2d, leaky_relu
-from .necks import DCN, DLASeg
+from .necks import DCN, DeformLocConv, DLASeg
 
 
 def flatten_anchor_map(x):
@@ -241,10 +241,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 nn.init.uniform_(mod.weight, -bound, bound,
                                  generator=generator)
                 mod.bias.zero_()
+            elif isinstance(mod, DeformLocConv):
+                bound = math.sqrt(1.0 / mod.weight[0].numel()
+                                  / mod.weight.shape[0])
+                nn.init.uniform_(mod.weight, -bound, bound,
+                                 generator=generator)
+                mod.bias.zero_()
         # after the loop: it visits each DCN's offset conv after the DCN,
         # as a Conv2d, and would draw it again
         for mod in model.modules():
-            if isinstance(mod, DCN):
+            if isinstance(mod, (DCN, DeformLocConv)):
                 mod.conv_offset_mask.weight.zero_()
                 mod.conv_offset_mask.bias.zero_()
     return model

@@ -39,7 +39,8 @@ def parse_args(argv=None):
     p.add_argument("--data_root", required=True)
     p.add_argument("--step", type=int, default=None)
     p.add_argument("--phase", default="validation",
-                   help="validation | test | train")
+                   help="validation | val_train (the train split with the "
+                        "eval preprocessing) | test | train")
     p.add_argument("--torch_weights", default=None,
                    help="checkpoint of the original model (.pth/.pkl) to "
                         "evaluate instead of the run's")
@@ -111,15 +112,16 @@ def run_test(run_dir: str, data_root=None, step=None, phase="validation",
     conf = load_conf(run_dir)
     if torch_weights:
         from ..utils.torch_import import (load_reference_checkpoint,
-                                          load_torch_file, pin_parity_conf)
+                                          load_torch_file, pin_parity_conf,
+                                          reference_block)
 
         sd = load_torch_file(torch_weights)
         conf = pin_parity_conf(conf, sd)
         model = build(conf, device=device)
-        block = "basic" if conf.back_bone == "dla34" else "bottleneck"
         new, _ = load_reference_checkpoint(
             model, sd, num_anchors=conf.anchors.shape[0],
-            num_classes=conf.num_classes, block=block)
+            num_classes=conf.num_classes,
+            block=reference_block(conf.back_bone))
         model.load_state_dict(new, strict=True)
         tag = os.path.splitext(os.path.basename(torch_weights))[0]
         name = f"results_parity_{tag}"
@@ -131,7 +133,7 @@ def run_test(run_dir: str, data_root=None, step=None, phase="validation",
 
     if dataset is None:
         dataset = Kitti3DDataset(conf, data_root, phase=phase)
-        db = (conf.datasets_train if phase == "train"
+        db = (conf.datasets_train if phase in ("train", "val_train")
               else conf.datasets_validation)[0]
         gt_path = os.path.join(data_root, db["name"],
                                _PHASE_DIR.get(phase, phase), "label_2")

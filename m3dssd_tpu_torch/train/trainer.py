@@ -46,9 +46,11 @@ from ..utils.checkpoint import (is_seed_checkpoint, restore_checkpoint,
 from ..utils.device import resolve_device
 from ..utils.logging_utils import (StatTracker, compute_eta, init_logging,
                                    pretty_print)
+from ..utils.profiling import make_tb_writer
 from ..utils.source_snapshot import snapshot_source
 from ..utils.torch_import import (load_reference_checkpoint,
-                                  load_torch_file, pin_parity_conf)
+                                  load_torch_file, pin_parity_conf,
+                                  reference_block)
 from .state import create_train_state, make_train_step
 
 
@@ -144,7 +146,8 @@ class Trainer:
         self.best_metric = -1.0
         self.val_dataset = val_dataset
         self._eval_detect = None
-        self.writer = None
+        self.writer = make_tb_writer(os.path.join(output_dir, "log", "tb")) \
+            if self.primary else None
         self.last_stats = None
         self.last_eval = None
 
@@ -160,11 +163,11 @@ class Trainer:
                 restore_checkpoint(path, self.state)
             return
         conf = self.conf
-        block = "basic" if conf.back_bone == "dla34" else "bottleneck"
         sd, _ = load_reference_checkpoint(
             self.model, self._pretrained_sd,
             num_anchors=conf.anchors.shape[0],
-            num_classes=conf.num_classes, block=block)
+            num_classes=conf.num_classes,
+            block=reference_block(conf.back_bone))
         self.model.load_state_dict(sd, strict=True)
 
     def _gt_path(self) -> Optional[str]:
@@ -208,6 +211,13 @@ class Trainer:
         if res:
             logging.info("eval epoch %d: Car 3D R40 = %s", epoch,
                          res.get("Car_3d_R40"))
+            if self.writer is not None:
+                for key, vals in res.items():
+                    if key.startswith("_"):
+                        continue
+                    for d, name in zip(vals, ["easy", "moderate", "hard"]):
+                        self.writer.add_scalar(f"Test/{key}/{name}", d,
+                                               epoch)
         return sel
 
     def run(self, epochs: Optional[int] = None):
@@ -250,6 +260,8 @@ class Trainer:
                                         self.state, it, async_save=True)
                     logging.info("new best model: %.4f", sel)
         wait_for_saves()
+        if self.writer is not None:
+            self.writer.flush()
         # every checkpoint is on disk before any rank goes on to read one
         barrier(self.mesh)
         return self.state
@@ -259,6 +271,9 @@ class Trainer:
         eval produced one (rank 0 only); returns the (possibly new) path."""
         if self.best_metric <= 0 or not self.primary:
             return self.output_dir
+        if self.writer is not None:
+            self.writer.close()
+            self.writer = None
         new_dir = f"{self.output_dir}_{self.best_metric:.4f}"
         os.rename(self.output_dir, new_dir)
         logging.info("run dir renamed: %s", new_dir)

@@ -246,6 +246,14 @@ def flax_path(modules: Dict[str, nn.Module], key: str
     return parts, leaf
 
 
+def reference_block(back_bone: str) -> str:
+    """The original model's block layout of a DLA variant: 'basic' for the
+    dla34 family (dla34_depth's DepthBlock keeps BasicBlock's conv1/bn1;
+    its row-banded conv has no original counterpart), 'bottleneck' for
+    dla60/102."""
+    return "basic" if back_bone in ("dla34", "dla34_depth") else "bottleneck"
+
+
 def load_reference_checkpoint(model: nn.Module, state_dict: Dict[str, Any],
                               num_anchors: int, num_classes: int,
                               block: str = "basic", strip_module=True):

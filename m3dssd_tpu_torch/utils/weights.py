@@ -6,11 +6,14 @@ returns a state dict that the port's model loads with `strict=True`, so that
 both packages compute the same function. The port's module names follow the
 reference's, so the walk is mechanical; only the layouts change:
 
-  * conv kernels HWIO [kh, kw, I, O] -> OIHW [O, I, kh, kw];
+  * conv kernels HWIO [kh, kw, I, O] -> OIHW [O, I, kh, kw] (grouped
+    convs too: LocalConv2d's [3, 3, C, r*F] kernel, band i in outputs
+    i*F .. (i+1)*F - 1, needs no reordering);
   * BatchNorm scale/bias + batch_stats mean/var -> weight/bias +
     running_mean/running_var (num_batches_tracked 0);
   * deformable and align weights [K, K, Cin, Cout] stay as they are (the
-    layout the shift-DCN kernel takes);
+    layout the shift-DCN kernel takes), as do DeformLocConv's per-band
+    weight [r, K*K*Cin, Cout] and bias [r, Cout];
   * upsampling kernels [2f, 2f, 1, C] (a correlation over the lhs-dilated
     input) -> ConvTranspose2d weight [C, 1, 2f, 2f], spatially flipped,
     since a transposed convolution applies the flipped kernel.

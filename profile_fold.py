@@ -3,12 +3,12 @@
     python3 profile_fold.py
 
 Builds the flagship (DLA-102, 384x1280 bs=8, packed input) as
-`chip_smoke.py`'s lifecycle does, and for three sets of weights (a fresh
-init, the same with every BN's scale, shift and statistics moved off
-their init, and 8 steps of the train CLI's function) runs 8 synthetic
-validation images through four eval builds: float32 and bf16, each
-unfolded and folded from the float32 weights (`utils/fold_bn.py`). For
-each output (cls, bbox_2d, bbox_3d) and the backbone's last feature map it
+`chip_smoke.py`'s lifecycle does at full depth, and for three sets of
+weights (a fresh init, the same with every BN's scale, shift and
+statistics moved off their init, and 8 steps of the train CLI's
+function) runs 8 synthetic validation images through four eval builds:
+float32 and bf16, each unfolded and folded from the float32 weights
+(`utils/fold_bn.py`). For each output (cls, bbox_2d, bbox_3d) and the backbone's last feature map it
 prints |diff| from the float32 unfolded model, relative to that model's
 largest magnitude: the median, the 0.99 and 0.999 quantiles, the largest,
 and the share above 1e-3. `chip_smoke.py` sets its folding limits

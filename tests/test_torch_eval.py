@@ -334,7 +334,7 @@ def test_eval_dataset_matches_jax_and_in_memory_set(split, tmp_path):
                 open(_val(split, "label_2", name)) as b:
             assert a.read() == b.read()
     with pytest.raises(ValueError, match="phase"):
-        kitti.Kitti3DDataset(conf, split, phase="val_train")
+        kitti.Kitti3DDataset(conf, split, phase="val")
 
 
 def test_synthetic_scenes_match_jax():

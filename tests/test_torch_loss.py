@@ -183,7 +183,9 @@ def test_rank_select_matches_jax_on_ties_and_budget_edges(seed):
 def test_random_sampling_and_unported_branches(setup):
     """hard_negatives off draws the sampling scores from a torch.Generator
     (same draw, same loss; the budgets hold); the 3D-projection and 3D-IoU
-    branches are not ported and raise."""
+    branches run: each adds its stat when the batch carries `p2_inv`, and
+    is skipped without it (tests/test_torch_iou3d.py holds their values
+    against JAX)."""
     conf, rois = setup
     N = rois.shape[0]
     outputs = {k: torch.from_numpy(v) for k, v in _outputs(5, N).items()}
@@ -202,7 +204,17 @@ def test_random_sampling_and_unported_branches(setup):
     assert float(runs[0][1]["fg_count"]) == float(n_fg.sum())
     assert float(runs[0][1]["bg_count"]) == float(
         (round(N * cfg.box_samples) - n_fg).sum())
-    for key in ("bbox_3d_proj_lambda", "bbox_3d_iou_lambda"):
-        bad = RPNLossConfig.from_conf(conf.replace(**{key: 1.0}))
-        with pytest.raises(NotImplementedError):
-            rpn_3d_loss(outputs, batch, *consts, bad)
+    base, _ = rpn_3d_loss(outputs, batch, *consts,
+                          RPNLossConfig.from_conf(conf))
+    p2_inv = torch.eye(4).expand(B, 4, 4)
+    p2_inv = p2_inv * torch.tensor([1e-3, 1e-3, 1.0, 1.0])[:, None]
+    for key, stat in (("bbox_3d_proj_lambda", "loss_bbox3d_proj"),
+                      ("bbox_3d_iou_lambda", "loss_bbox3d_iou")):
+        on = RPNLossConfig.from_conf(conf.replace(**{key: 1.0}))
+        skipped, s_skip = rpn_3d_loss(outputs, batch, *consts, on)
+        assert float(skipped) == float(base) and stat not in s_skip
+        loss, s_on = rpn_3d_loss(outputs, dict(batch, p2_inv=p2_inv),
+                                 *consts, on)
+        assert torch.isfinite(loss) and torch.isfinite(s_on[stat])
+        assert float(loss) == pytest.approx(float(base + s_on[stat]),
+                                            rel=1e-6)

@@ -169,8 +169,15 @@ def _loss_cases(conf, rois):
               np.asarray(conf.bbox_means, np.float32),
               np.asarray(conf.bbox_stds, np.float32))
     cfg = RPNLossConfig.from_conf(conf).__dict__
+    p2 = np.array([[721.5377, 0.0, 609.5593, 44.85728],
+                   [0.0, 721.5377, 172.854, 0.2163791],
+                   [0.0, 0.0, 1.0, 0.002745884], [0.0, 0.0, 0.0, 1.0]])
+    proj = dict(batch, p2_inv=np.stack([np.linalg.inv(p2)] * 4)
+                .astype(np.float32))
     cases = {"base": (batch, {}), "no_fg_rank": (nofg, {}),
-             "random": (batch, {"hard_negatives": False})}
+             "random": (batch, {"hard_negatives": False}),
+             "proj_giou": (proj, {"bbox_3d_proj_lambda": 1.0,
+                                  "bbox_3d_iou_lambda": 1.0})}
     return {name: {"outputs": _t(outputs), "batch": _t(b),
                    "consts": tuple(torch.from_numpy(c) for c in consts),
                    "cfg": {**cfg, **over}}
@@ -438,12 +445,15 @@ def test_group_batchnorm_fused_kernels_on_card(tmp_path, dtype, tol):
 # the loss
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("name", ["base", "no_fg_rank", "random"])
+@pytest.mark.parametrize("name", ["base", "no_fg_rank", "random",
+                                  "proj_giou"])
 def test_loss_over_two_ranks_matches_one_process(runs, name):
     """The ranks' losses sum to the loss on the whole batch, their output
     gradients are its gradient's rows, and both report its stats: with fg
     on every row, with no fg on the second rank (its local denominators
-    are 0), and with random sampling drawn from one generator state."""
+    are 0), with random sampling drawn from one generator state, and with
+    the 3D-projection and 3D-GIoU branches on (their means over the global
+    fg count)."""
     inputs, _, out = runs
     case = inputs["loss"][name]
     outputs = {k: v.clone().requires_grad_()
@@ -457,6 +467,8 @@ def test_loss_over_two_ranks_matches_one_process(runs, name):
     assert float(stats["fg_count"]) > 0
     if name == "no_fg_rank":
         assert not case["batch"]["labels_fg"][2:].any()
+    if name == "proj_giou":
+        assert "loss_bbox3d_proj" in stats and "loss_bbox3d_iou" in stats
     np.testing.assert_allclose(float(got[0]["loss"] + got[1]["loss"]),
                                float(loss), **LOSS_TOL)
     for k, want in zip(names, grads):
@@ -631,8 +643,10 @@ def test_trainer_over_two_ranks(runs):
     assert sorted(os.listdir(os.path.join(run, "weights"))) == ["step_1"]
     for d in ("weights", "weights_best"):
         assert os.listdir(os.path.join(run, d, "step_1")) == ["state.pt"]
+    # rank 0 alone writes the TensorBoard events (log/tb)
     assert sorted(os.listdir(os.path.join(run, "log"))) == [
-        "train.log", "train.p1.log"]
+        "tb", "train.log", "train.p1.log"]
+    assert len(os.listdir(os.path.join(run, "log", "tb"))) == 1
     assert len(os.listdir(os.path.join(run, "results", "results_1",
                                        "data"))) == 4
 
@@ -687,8 +701,10 @@ def test_train_and_test_clis_under_torchrun(tmp_path):
         timeout=600)
     assert res.returncode == 0, res.stderr[-4000:]
     assert res.stdout.count("run directory:") == 2
+    # rank 0 alone writes the TensorBoard events (log/tb)
     assert sorted(os.listdir(os.path.join(run, "log"))) == [
-        "train.log", "train.p1.log"]
+        "tb", "train.log", "train.p1.log"]
+    assert len(os.listdir(os.path.join(run, "log", "tb"))) == 1
     assert os.listdir(os.path.join(run, "seed")) == ["seed.pt"]
     res = subprocess.run(
         launch + ["m3dssd_tpu_torch.scripts.test", "--mesh_devices", "2",

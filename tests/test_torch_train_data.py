@@ -215,11 +215,18 @@ def test_synthetic_train_set_matches_the_written_split(data):
 
 
 def test_unported_options_raise():
+    """The options that raised until they were ported now run: photometric
+    distortion joins the train chain after the float conversion, k-means
+    anchors build the train split's anchors (tests/test_torch_capabilities.py
+    holds both against JAX)."""
     _, conf = _confs()
-    with pytest.raises(NotImplementedError):
-        Augmentation(conf.replace(distort_prob=0.5))
-    with pytest.raises(NotImplementedError):
-        SyntheticTrainSet(conf.replace(cluster_anchors=1), 2, seed=0, **IM)
+    aug = Augmentation(conf.replace(distort_prob=0.5))
+    assert type(aug.augment.transforms[1]).__name__ == "PhotometricDistort"
+    km = SyntheticTrainSet(conf.replace(cluster_anchors=1), 2, seed=0, **IM)
+    assert km.conf.anchors.shape[1] == 9
+    assert np.isfinite(km.conf.anchors).all()
+    assert km.rois.shape[0] == (km.conf.anchors.shape[0]
+                                * int(np.prod(km.conf.feat_size)))
     # on-device targets are ported: the sample carries padded gts
     syn = SyntheticTrainSet(conf.replace(pre_compute_target=False), 2,
                             seed=0, **IM)
