@@ -28,7 +28,14 @@ ranks on one device) and over a one-rank NCCL group, in bf16 and in
 float32, against the one-process step, the group BatchNorm alone against
 the one-process BatchNorm at every BatchNorm shape of that step, and
 `test_kitti_3d` over the two ranks against the one-process driver's
-bytes. Last, the train step with every option on: dla34_depth at
+bytes. The spatial and model mesh axes run their ranks so too: at the
+flagship's full width, a bf16 and a float32 train step and detect over
+two gloo ranks with image height sharded (halo exchanges) and with the
+wide layers' output channels sharded, against one process, every
+shift-DCN call of those runs (at slab heights and Cout / 2) against the
+plain version on its operands, with each rank's peak memory, parameter
+and momentum bytes and step time. Last, the train step with every
+option on: dla34_depth at
 512x1760 bs=8 bf16 with k-means anchors, photometric distortion in the
 loader and both 3D loss branches, with host and device targets, every
 DCN call of one such step against the plain version on its operands, the
@@ -2663,6 +2670,402 @@ def phase_data_parallel(label, single_ms):
     return total
 
 
+# The spatial and model mesh axes: the flagship's train step and detect
+# on a mesh of MESH_RANKS gloo ranks on cuda:0 (one process each, like
+# phase_data_parallel's), per layout (name, spatial, model), against one
+# process on the same global batch (the data axis has one rank: every
+# rank takes all of its rows). The compared steps and detects run a
+# global batch of MESH_BATCH rows under the DCN spies (each spied call is
+# checked against plain, which at TRAIN_BATCH rows would take most of the
+# smoke's time); the memory and step times are read at the train cell's
+# TRAIN_BATCH rows, in steps without spies.
+MESH_LAYOUTS = (("spatial", 2, 1), ("model", 1, 2))
+MESH_RANKS = 2
+MESH_BATCH = 2
+MESH_TIMED_STEPS = 2
+# The step against the one-process step (`mesh_step_errors`): the stats;
+# the BN statistics; the gradients, which are the step's new momentum
+# buffers (the optimizer starts without any), as the median over tensors
+# of each tensor's error against its own largest value and the largest
+# error against the largest gradient; and the parameters in float32 ulps
+# beyond what the gradients' difference moves them by (an update is some
+# 1e-5 of its parameter, so one ulp is ~1e-2 of the update: differences
+# of float32 parameters cannot hold an update closer). The slabs' and the
+# channel slices' convolutions round otherwise than the whole layer's,
+# and the train-mode BN layers carry that to 1e-3 to 1e-2 of the
+# gradients (tests/test_torch_mesh_axes.py reads it layer by layer on the
+# CPU, and the one-process float32 gradient's own error against float64
+# at that size); the bf16 step is held by its stats and BN statistics, as
+# phase_data_parallel holds it. Limits: MESH_TOL, set from the card
+# readings PERF.md records. What the collectives carry is held bit for bit on
+# the CPU (test_collectives_move_values_exactly).
+MESH_TOL = {torch.bfloat16: {"stats": 2.5e-2, "bn_stats": 1e-1},
+            torch.float32: {"stats": 3e-5, "bn_stats": 3e-4,
+                            "grad_median": 3e-2, "grad_largest": 5e-2,
+                            "param_ulps": 1.0}}
+# Detect (score threshold 0: every image's nms_topN_post rows are kept,
+# where the random weights clear the config's 0.75 nowhere) against the
+# one process's in float32 (TF32 off) and bf16: the same number of kept
+# rows, and each kept row's distance to the nearest kept row of the one
+# process's on its image (`row_distances`; rows of scores within rounding
+# of each other trade places in the NMS order). In float32 every row
+# within the reference package's mesh-detect tolerance (tests/test_e2e.py,
+# MESH_DET_TOL; read 0.142 and 0). In bf16, in units of one bf16 ulp
+# (MESH_BF16_DET["tol"], rtol = atol = 2^-8): the median and the largest
+# distance within MESH_BF16_DET's limits (read: median 0.9 / 1.0, largest
+# 37.1 / 94.5 for spatial / model; one process's bf16 rows against its
+# float32 rows: 0.7 and 35.1, from bf16's rounding of the box decode).
+MESH_DET_TOL = dict(rtol=1e-4, atol=1e-3)
+MESH_BF16_DET = {"tol": dict(rtol=2.0 ** -8, atol=2.0 ** -8),
+                 "median": 4.0, "largest": 200.0}
+
+
+def _tf32(on):
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
+
+
+def mesh_run(conf, ds, batch, images, dev, mesh, spy, tmp, tag):
+    """The mesh phase's compared runs on one model (the flagship's train
+    build from seed 0, on `mesh` when given): a bf16 step (under the DCN
+    spies when `spy`); from the initial weights again a float32 step (TF32
+    off); then eval-mode detect of `images` in float32 and in bf16. Saves
+    the whole state and momentum after each step and the detections to
+    `tmp` (rank 0 of a mesh). Returns the readings, the launches and the
+    spied DCN calls."""
+    from m3dssd_tpu_torch.inference.detect import make_batch_detector
+    from m3dssd_tpu_torch.models import build
+    from m3dssd_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+    from m3dssd_tpu_torch.utils.checkpoint import whole_state
+
+    def spied(fn):
+        return dcn_calls_vs_plain(fn) if spy else (fn(), [])
+
+    primary = mesh is None or mesh.primary
+    out, calls = {}, []
+    model = build(conf, device=dev, seed=0, phase="train", mesh=mesh)
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    launches = dict.fromkeys(("forward",) + BWD_KERNELS, 0)
+
+    def count():
+        for k, v in bwd_counts().items():
+            launches[k] += v
+
+    for key, compute in (("bf16", torch.bfloat16), ("f32", None)):
+        model.load_state_dict(init)
+        model.base.base.compute_dtype = compute
+        _tf32(compute is not None)
+        state = create_train_state(conf, model, max_iter=10 ** 6)
+        step = make_train_step(conf, ds.rois, packed_input=True, mesh=mesh)
+        out["lr"] = state.optimizer.lr()
+        reset_counts()
+        stats, c = spied(lambda: step(state, batch))
+        count()
+        calls += c
+        out[f"{key}_stats"] = {k: float(v) for k, v in stats.items()}
+        if key == "bf16":
+            out["spatial_active"] = step.on_slabs
+        sd, opt = whole_state(state)
+        if primary:
+            torch.save({"state": {k: v.detach().cpu() for k, v in sd.items()},
+                        "momentum": {n: st["momentum_buffer"].cpu()
+                                     for n, st in opt["state"].items()}},
+                       os.path.join(tmp, f"{tag}.{key}.pt"))
+        del state, step, sd, opt
+    model.load_state_dict(init)
+    model.eval()
+    sfs = torch.ones(images.shape[0])
+    for key, compute in (("f32", None), ("bf16", torch.bfloat16)):
+        model.base.base.compute_dtype = compute
+        _tf32(compute is not None)
+        detect = make_batch_detector(conf.replace(score_thres=0.0),
+                                     ds.rois, model, packed_input=True,
+                                     device=dev)
+        reset_counts()
+        dets, c = spied(lambda: detect(images, sfs))
+        count()
+        calls += c
+        if primary:
+            torch.save(dets.cpu(), os.path.join(tmp, f"{tag}.det_{key}.pt"))
+    _tf32(True)
+    return out, launches, calls
+
+
+def mesh_memory(conf, ds, batch, dev, mesh):
+    """Peak memory, parameter and momentum bytes of a bf16 train step at
+    the batch's rows (the flagship's train build from seed 0, on `mesh`
+    when given), then the median time of MESH_TIMED_STEPS more; no
+    spies."""
+    from m3dssd_tpu_torch.models import build
+    from m3dssd_tpu_torch.train.state import (create_train_state,
+                                              make_train_step)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build(conf, device=dev, seed=0, phase="train", mesh=mesh)
+    state = create_train_state(conf, model, max_iter=10 ** 6)
+    step = make_train_step(conf, ds.rois, packed_input=True, mesh=mesh)
+    first = sync_s(lambda: step(state, batch))[1]
+    out = {"peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in model.parameters()),
+           "momentum_bytes": sum(t.numel() * t.element_size()
+                                 for st in state.optimizer.state.values()
+                                 for t in st.values()),
+           "first_ms": 1e3 * first}
+    times = [sync_s(lambda: step(state, batch))[1]
+             for _ in range(MESH_TIMED_STEPS)]
+    out["step_ms"] = 1e3 * sorted(times)[len(times) // 2]
+    del model, state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def row_distances(got, ref, tol=MESH_DET_TOL):
+    """Each kept row (score >= 0) of `got` [B, R, 14]: its distance to the
+    nearest kept row of `ref` of the same image, in units of `tol` (max
+    over fields of |g - r| / (atol + rtol |r|)), sorted."""
+    out = []
+    for g, r in zip(got.double(), ref.double()):
+        g, r = g[g[:, 4] >= 0], r[r[:, 4] >= 0]
+        if not len(g):
+            continue
+        if not len(r):
+            return [float("inf")] * len(g)
+        d = (g[:, None] - r[None]).abs() / (tol["atol"]
+                                            + tol["rtol"] * r[None].abs())
+        out += d.amax(-1).amin(-1).tolist()
+    return sorted(out)
+
+
+def det_errors(got, ref, tol=MESH_DET_TOL):
+    """(median, largest) of `row_distances` (0 without kept rows)."""
+    d = row_distances(got, ref, tol) or [0.0]
+    return d[len(d) // 2], d[-1]
+
+
+def mesh_step_errors(got, ref, lr, stats, ref_stats):
+    """A step against the one process's (see MESH_TOL): `got` and `ref` as
+    `mesh_run` saves them."""
+    names = list(ref["momentum"])
+    zeros = {n: torch.zeros_like(v) for n, v in ref["momentum"].items()}
+    own, largest = update_errors(got["momentum"], zeros, ref["momentum"],
+                                 names)
+    vals = sorted(own.values())
+    ulps = 0.0
+    for n in names:
+        a, b = got["state"][n].double(), ref["state"][n].double()
+        top = torch.maximum(a.abs(), b.abs()).float()
+        ulp = (torch.nextafter(top, torch.full_like(top, float("inf")))
+               - top).double()
+        moved = lr * (got["momentum"][n].double()
+                      - ref["momentum"][n].double()).abs()
+        ulps = max(ulps, float(((a - b).abs() - moved).clamp(min=0)
+                               .div(ulp).max()))
+    bn = max(float((got["state"][n].double() - ref["state"][n].double())
+                   .abs().max() / ref["state"][n].double().abs().max()
+                   .clamp(min=1e-12))
+             for n in ref["state"] if n.endswith(("running_mean",
+                                                  "running_var")))
+    return {"stats": max(abs(stats[k] - v) / max(abs(v), 1e-6)
+                         for k, v in ref_stats.items()),
+            "bn_stats": bn, "grad_median": vals[len(vals) // 2],
+            "grad_largest": largest, "param_ulps": ulps}
+
+
+def mesh_conf():
+    return train_conf(TRAIN_CROP, MESH_BATCH).replace(warmup=0.0,
+                                                      lr=FIXED_LR)
+
+
+def mesh_inputs(conf):
+    """(train split, global batch of MESH_BATCH rows, of TRAIN_BATCH rows,
+    packed images to detect) of the mesh phase."""
+    from m3dssd_tpu_torch.data.loader import TrainLoader
+
+    ds = train_set(conf)
+    small, big = (next(TrainLoader(ds, b, num_workers=4, seed=0,
+                                   pack_s2d=True).batches(1))
+                  for b in (MESH_BATCH, TRAIN_BATCH))
+    images = packed_images(MESH_BATCH, *TRAIN_CROP, seed=21, device="cpu")
+    return ds, small, big, images
+
+
+def mesh_rank(layout, rank, world, tmp):
+    """One rank of `phase_mesh_axes`, in a fresh process: a gloo group on
+    cuda:0 laid out as `layout` of MESH_LAYOUTS, `mesh_run` under the DCN
+    spies (every shift-DCN call of its steps and detects held against the
+    plain version on its own operands), then `mesh_memory` at TRAIN_BATCH
+    rows. Prints one JSON line."""
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank))
+    sys.path.insert(0, ROOT)
+    from m3dssd_tpu_torch.parallel import init_distributed, make_mesh
+
+    _, sp, mp = next(lay for lay in MESH_LAYOUTS if lay[0] == layout)
+    init_distributed("gloo", device="cuda:0", init_method="file://"
+                     + os.path.join(tmp, f"{layout}.store"))
+    mesh = make_mesh(spatial=sp, model=mp, device="cuda:0")
+    conf = mesh_conf()
+    ds, small, big, images = mesh_inputs(conf)
+    out, launches, calls = mesh_run(conf, ds, small, images, mesh.device,
+                                    mesh, True, tmp, layout)
+    out["memory"] = mesh_memory(conf.replace(batch_size=TRAIN_BATCH), ds,
+                                big, mesh.device, mesh)
+    out.update(rank=rank, coords=[mesh.rank, mesh.s, mesh.m],
+               launches=launches, calls=calls)
+    torch.distributed.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def phase_mesh_axes(label):
+    """The spatial and model mesh axes on the card, at the flagship's full
+    width (DLA-102, 384x1280, packed): per layout of MESH_LAYOUTS,
+    MESH_RANKS gloo ranks on cuda:0 in fresh processes run a bf16 and a
+    float32 train step and detect in float32 and bf16 at a global batch of
+    MESH_BATCH rows, against the same on one process (run first, alone on
+    the card); every shift-DCN forward and backward call of the ranks'
+    runs is held against the plain version on its own operands (the
+    kernels at the slab heights and Cout/mp they see only here). Prints
+    each rank's peak memory, parameter and momentum bytes and step times
+    at TRAIN_BATCH rows against one process. Returns the kernels' launches
+    in the ranks' compared runs."""
+    import tempfile
+
+    conf = mesh_conf()
+    dev = torch.device("cuda")
+    total = dict.fromkeys(("forward",) + BWD_KERNELS, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        ds, small, big, images = mesh_inputs(conf)
+        one, _, _ = mesh_run(conf, ds, small, images, dev, None, False, tmp,
+                             "one")
+        one["memory"] = mesh_memory(conf.replace(batch_size=TRAIN_BATCH), ds,
+                                    big, dev, None)
+        torch.cuda.empty_cache()
+        ranks = {}
+        for layout, _, _ in MESH_LAYOUTS:
+            procs = [start_py(
+                f"import sys; sys.path.insert(0, {ROOT!r}); import "
+                f"chip_smoke; chip_smoke.mesh_rank({layout!r}, {r}, "
+                f"{MESH_RANKS}, {tmp!r})") for r in range(MESH_RANKS)]
+            ranks[layout] = sorted((finish_py(p) for p in procs),
+                                   key=lambda o: o["rank"])
+        from m3dssd_tpu_torch.models import build
+        from m3dssd_tpu_torch.models.necks import DCN
+
+        model = build(conf, device="cpu", seed=0, phase="train")
+        couts = {m.weight.shape[-1] for m in model.modules()
+                 if isinstance(m, DCN)}
+        del model
+        errs, det = {}, {}
+        for layout, _, _ in MESH_LAYOUTS:
+            for key in ("bf16", "f32"):
+                errs[layout, key] = mesh_step_errors(
+                    torch.load(os.path.join(tmp, f"{layout}.{key}.pt")),
+                    torch.load(os.path.join(tmp, f"one.{key}.pt")),
+                    one["lr"], ranks[layout][0][f"{key}_stats"],
+                    one[f"{key}_stats"])
+            for key in ("f32", "bf16"):
+                got = torch.load(os.path.join(tmp, f"{layout}.det_{key}.pt"))
+                ref = torch.load(os.path.join(tmp, f"one.det_{key}.pt"))
+                det[layout, key] = (got, ref)
+
+    mem = one["memory"]
+    log(f"mesh axes, flagship {TRAIN_CROP[0]}x{TRAIN_CROP[1]} packed "
+        f"({label}), {MESH_RANKS} gloo ranks on cuda:0 per layout, against "
+        f"one process; compared runs at global bs={MESH_BATCH}, memory and "
+        f"step times at bs={TRAIN_BATCH}:")
+    log(f"  one process: bf16 step {mem['step_ms']:.2f} ms (median of "
+        f"{MESH_TIMED_STEPS}; first {mem['first_ms']:.1f}), peak "
+        f"{mem['peak_gib']:.3f} GiB, parameters "
+        f"{mem['param_bytes'] / 2 ** 20:.2f} MiB, momentum "
+        f"{mem['momentum_bytes'] / 2 ** 20:.2f} MiB")
+    for layout, _, _ in MESH_LAYOUTS:
+        for o in ranks[layout]:
+            m = o["memory"]
+            log(f"  {layout} rank {o['rank']} (data, spatial, model) = "
+                f"{tuple(o['coords'])}: bf16 step {m['step_ms']:.2f} ms "
+                f"(first {m['first_ms']:.1f}), peak {m['peak_gib']:.3f} GiB "
+                f"({m['peak_gib'] / mem['peak_gib']:.3f} of one process), "
+                f"parameters {m['param_bytes'] / 2 ** 20:.2f} MiB "
+                f"({m['param_bytes'] / mem['param_bytes']:.3f}), momentum "
+                f"{m['momentum_bytes'] / 2 ** 20:.2f} MiB "
+                f"({m['momentum_bytes'] / mem['momentum_bytes']:.3f}); "
+                f"launches {o['launches']}")
+        for key in ("bf16", "f32"):
+            log(f"  {layout} {key} step: " + ", ".join(
+                f"{k} {v:.3e}" for k, v in errs[layout, key].items()))
+        shapes = sorted({(k, tuple(sh)) for o in ranks[layout]
+                         for k, sh, _ in o["calls"]})
+        worst = {}
+        for o in ranks[layout]:
+            for k, _, e in o["calls"]:
+                worst[k] = [max(a, b) for a, b in
+                            zip(worst.get(k, [0.0] * len(e)), e)]
+        log(f"  {layout}: {sum(len(o['calls']) for o in ranks[layout])} "
+            "shift-DCN calls held against plain on their operands, shapes "
+            f"(B, H, W, Cin, Cout) {shapes}; worst forward "
+            f"{worst.get('forward')}, backward (dx, doffset, dmask, "
+            f"dweight) {worst.get('backward')}")
+        for key, tol, unit in (("f32", MESH_DET_TOL, "MESH_DET_TOL"),
+                               ("bf16", MESH_BF16_DET["tol"], "bf16 ulps")):
+            got, ref = det[layout, key]
+            med, top = det_errors(got, ref, tol)
+            log(f"  {layout} detect {key}: {int((got[..., 4] >= 0).sum())} "
+                f"kept rows (one process {int((ref[..., 4] >= 0).sum())}), "
+                f"max |diff| in place {float((got - ref).abs().max()):.3e}, "
+                f"row distance to the nearest one-process row ({unit}): "
+                f"median {med:.3e}, largest {top:.3e}")
+        med, top = det_errors(det[layout, "bf16"][1], det[layout, "f32"][1],
+                              MESH_BF16_DET["tol"])
+        log(f"  one process's bf16 detect against its float32 detect (bf16 "
+            f"ulps): median {med:.3e}, largest {top:.3e}")
+
+    for layout, sp, mp in MESH_LAYOUTS:
+        rs = ranks[layout]
+        for o in rs:
+            check(o["bf16_stats"] == rs[0]["bf16_stats"]
+                  and o["f32_stats"] == rs[0]["f32_stats"],
+                  f"mesh {layout}: the ranks report other stats")
+            check(o["calls"], f"mesh {layout}: no shift-DCN call spied")
+            for k in total:
+                check(o["launches"][k] > 0, f"mesh {layout} rank "
+                      f"{o['rank']}: no {k} launch")
+                total[k] += o["launches"][k]
+            if mp > 1:
+                m = o["memory"]
+                check(m["param_bytes"] < mem["param_bytes"]
+                      and m["momentum_bytes"] < mem["momentum_bytes"],
+                      f"mesh {layout}: a rank holds every parameter")
+        hs = {sh[1] for o in rs for _, sh, _ in o["calls"]}
+        cs = {sh[4] for o in rs for _, sh, _ in o["calls"]}
+        whole = {TRAIN_CROP[0] // f for f in (8, 16, 32)}
+        if sp > 1:
+            check(all(o["spatial_active"] for o in rs) and not hs & whole,
+                  f"mesh {layout}: DCN calls at whole heights {hs}")
+        check(cs == {c // mp for c in couts}, f"mesh {layout}: DCN calls "
+              f"at Cout {cs}, the layers' are {couts}")
+        for key, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            for k, lim in MESH_TOL[dt].items():
+                e = errs[layout, key][k]
+                check(e <= lim, f"mesh {layout} {key} step against one "
+                      f"process: {k} error {e} above {lim}")
+        for key, tol, lims in (("f32", MESH_DET_TOL, (1.0, 1.0)),
+                               ("bf16", MESH_BF16_DET["tol"],
+                                (MESH_BF16_DET["median"],
+                                 MESH_BF16_DET["largest"]))):
+            got, ref = det[layout, key]
+            dists = det_errors(got, ref, tol)
+            check(bool(torch.isfinite(got).all())
+                  and torch.equal((got[..., 4] >= 0).sum(1),
+                                  (ref[..., 4] >= 0).sum(1))
+                  and all(e <= lim for e, lim in zip(dists, lims)),
+                  f"mesh {layout}: {key} detect against one process: row "
+                  f"distances (median, largest) {dists} above {lims}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -2704,6 +3107,7 @@ def main() -> int:
     fwd["eval"] = timed(phase_eval, label)
     train_launches, train_stats = timed(phase_train, label)
     dp_launches = timed(phase_data_parallel, label, train_stats["step_ms"])
+    mesh_launches = timed(phase_mesh_axes, label)
     timed(phase_train_card_vs_cpu)
     dt_launches = timed(phase_train_device_targets, label,
                         train_stats["step_ms"])
@@ -2713,6 +3117,7 @@ def main() -> int:
     bwd = {k: {} for k in BWD_KERNELS}
     for name, n in (("train", train_launches), ("data_parallel",
                                                 dp_launches),
+                    ("mesh_axes", mesh_launches),
                     ("device_targets", dt_launches),
                     ("lifecycle", life_launches),
                     ("capabilities", cap_launches)):

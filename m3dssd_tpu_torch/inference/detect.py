@@ -221,7 +221,9 @@ def make_batch_detector(conf, rois: np.ndarray, model, packed_input: bool = Fals
     the card unless `device` names another device; the model is moved
     there, and `detect.device` names it. It takes no mesh: under data
     parallelism every rank runs its own detector on whole batches
-    (`test_driver.test_kitti_3d(mesh=...)` deals the batches out).
+    (`test_driver.test_kitti_3d(mesh=...)` deals the batches out), and a
+    model built on a mesh's spatial or model axis (`build(mesh=...)`)
+    runs them inside its forward, on the weights' shards in place.
     """
     dev = resolve_device(device)
     model = model.to(dev).eval()

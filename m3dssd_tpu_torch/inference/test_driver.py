@@ -179,9 +179,12 @@ def test_kitti_3d(dataset, detect, conf, results_path: str,
     detector was built with packed_input=True, so images go up
     space-to-depth packed. A bf16 model gets bf16 images.
 
-    `mesh`: a data axis (`parallel.make_mesh`) every rank of which calls
-    this with the same split and its own detector. Rank r runs batches
-    r, r + W, ...; rank 0 gathers every rank's rows (as host objects),
+    `mesh`: a mesh (`parallel.make_mesh`) every rank of which calls this
+    with the same split and its own detector (of a model built on the
+    mesh). Data rank d runs batches d, d + W, ... (with every spatial and
+    model rank of its data coordinate, whose detections are the same);
+    rank 0 gathers the rows of spatial and model rank 0 of every data
+    rank (as host objects),
     writes the txts and computes AP, and then broadcasts the selection
     metric, so every rank returns the same one (and takes the same
     best-model branch in the Trainer); the results dict stays None off
@@ -202,7 +205,11 @@ def test_kitti_3d(dataset, detect, conf, results_path: str,
         rows = {}
         _run_batched(dataset, detect, conf, rows.__setitem__, batch_size,
                      pack, device, rank=mesh.rank, size=mesh.size)
-        for part in gather_to_primary(rows, mesh) or ():
+        # spatial and model rank 0 of each data rank holds the rows the
+        # others computed with it
+        parts = gather_to_primary(rows, mesh) \
+            if mesh.s == 0 and mesh.m == 0 else None
+        for part in parts or ():
             for image_id, dets_rows in part.items():
                 write(image_id, dets_rows)
     dt = time.time() - t0

@@ -22,7 +22,8 @@ Layouts: features x are NCHW (channels_last); the per-anchor confidence and
 regressions are [B, H, W, A]. The DCN mask is the soft max confidence.
 Under autograd, gradients reach x and the modules' weights only: the
 confidence and the box regressions that place the taps are detached, as in
-the reference package.
+the reference package. Under the model axis a module computes its own
+output channels of the aligned map and gathers them before the residual.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch.nn as nn
 from ..ops.compact import first_m_true
 from ..ops.control import cond
 from ..ops.dcn import bilinear_sample_rows, dcn_v2
+from ..parallel import model_axis
 
 
 class SparseSel(NamedTuple):
@@ -87,6 +89,17 @@ def _nchw(y):
     return y.permute(0, 3, 1, 2)
 
 
+def _enter(x, shard):
+    """The aligned map's input: under the model axis every rank's output
+    channels read all of x (parallel/model_axis.py)."""
+    return x if shard is None else model_axis.copy_to(x, shard)
+
+
+def _out(y, shard):
+    """This rank's output channels -> all of them."""
+    return y if shard is None else model_axis.gather(y, shard)
+
+
 class ShapeAlign(nn.Module):
     """Anchor-shape-driven 3x3 deformable alignment."""
 
@@ -111,15 +124,19 @@ class ShapeAlign(nn.Module):
         self.weight = nn.Parameter(torch.empty(K, K, features, features))
         self.bias = nn.Parameter(torch.zeros(features))
 
+    model_shard = None
+
     def forward(self, x, prob, sparse_sel: Optional[SparseSel] = None):
+        xin = _enter(x, self.model_shard)
         if sparse_sel is None:
-            return self._dense(x, _anchor_max(prob)) + x
+            return _out(self._dense(xin, _anchor_max(prob)),
+                        self.model_shard) + x
         sel = sparse_sel
         aligned = cond(sel.ok,
                        lambda x: self._sparse_correct(self._base(x, sel), x,
                                                       sel),
-                       lambda x: self._dense(x, sel), (x,))
-        return aligned + x
+                       lambda x: self._dense(x, sel), (xin,))
+        return _out(aligned, self.model_shard) + x
 
     def _dense(self, x, sel: SparseSel):
         """Full-map deformable path."""
@@ -191,19 +208,23 @@ class CenterAlign(nn.Module):
         self.weight = nn.Parameter(torch.empty(1, 1, features, features))
         self.bias = nn.Parameter(torch.zeros(features))
 
+    model_shard = None
+
     def forward(self, x, bbox_x, bbox_y, prob,
                 sparse_sel: Optional[SparseSel] = None):
         """bbox_x / bbox_y: per-anchor whitened delta predictions
         [B,H,W,A]."""
+        xin = _enter(x, self.model_shard)
         if sparse_sel is None:
-            return self._dense(x, bbox_x, bbox_y, prob) + x
+            return _out(self._dense(xin, bbox_x, bbox_y, prob),
+                        self.model_shard) + x
         sel = sparse_sel
         aligned = cond(sel.ok,
                        lambda x, bx, by: self._sparse_correct(
                            self._base(x, sel), x, bx, by, sel),
                        lambda x, bx, by: self._dense(x, bx, by, prob),
-                       (x, bbox_x, bbox_y))
-        return aligned + x
+                       (xin, bbox_x, bbox_y))
+        return _out(aligned, self.model_shard) + x
 
     def _offsets(self, bx, by, ind):
         """Un-whitened center offsets in feature pixels of anchor `ind`."""

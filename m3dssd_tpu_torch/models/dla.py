@@ -17,8 +17,9 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn as nn
 
-from .layers import (ConvBNAct, LocalConv2d, batch_norm, conv2d, leaky_relu,
-                     max_pool)
+from ..parallel.spatial import active, local_rows
+from .layers import (ConvBNAct, LocalConv2d, batch_norm, conv2d, conv_bn,
+                     leaky_relu, max_pool)
 
 
 class BasicBlock(nn.Module):
@@ -74,7 +75,7 @@ class Bottleneck(nn.Module):
         if residual is None:
             residual = x
         out = self.ConvBNAct_0(x)
-        out = leaky_relu(self.BatchNorm_0(self.Conv_0(out)))
+        out = conv_bn(self.Conv_0, self.BatchNorm_0, out, act=True)
         out = self.ConvBNAct_1(out)
         return leaky_relu(out + residual)
 
@@ -89,7 +90,7 @@ class Root(nn.Module):
         self.residual = residual
 
     def forward(self, children: List[torch.Tensor]):
-        x = self.BatchNorm_0(self.Conv_0(torch.cat(children, dim=1)))
+        x = conv_bn(self.Conv_0, self.BatchNorm_0, torch.cat(children, dim=1))
         if self.residual:
             x = x + children[0]
         return leaky_relu(x)
@@ -158,7 +159,11 @@ def space_to_depth(x):
 
 
 class DLA(nn.Module):
-    """The DLA trunk: 6 feature levels at strides 1, 2, 4, 8, 16, 32."""
+    """The DLA trunk: 6 feature levels at strides 1, 2, 4, 8, 16, 32.
+    Under an active spatial axis it runs on its rank's rows of the
+    images."""
+
+    spatial_shard = None
 
     def __init__(self, levels: Sequence[int], channels: Sequence[int],
                  block=BasicBlock, residual_root: bool = False,
@@ -201,10 +206,13 @@ class DLA(nn.Module):
         as NCHW tensors in channels_last memory format."""
         if packed:
             images = depth_to_space(images, self.in_channels)
+        sp = active(self.spatial_shard)
+        if sp is not None:
+            images = local_rows(images, sp, dim=1)
         dtype = self.compute_dtype or self.base_conv.weight.dtype
         x = images.to(dtype).permute(0, 3, 1, 2)
         x = x.contiguous(memory_format=torch.channels_last)
-        x = leaky_relu(self.base_bn(self.base_conv(x)))
+        x = conv_bn(self.base_conv, self.base_bn, x, act=True)
         outputs = []
         for names in self._level01:
             for name in names:

@@ -11,6 +11,12 @@ weights to the input's type at use, and BatchNorm in train mode normalises
 by the biased batch variance in float32 and moves its running statistics
 with momentum 0.9 on that biased variance (torch's own BatchNorm2d updates
 them with the unbiased one).
+
+Under a mesh (`build(mesh=...)`) a layer of DLASeg runs on its rank's rows
+(`spatial_shard`, parallel/spatial.py: the halo rows come from the
+neighbouring ranks) and a layer with sharded channels runs on its own
+output channels (`model_shard`, parallel/model_axis.py); both are None
+otherwise.
 """
 
 from __future__ import annotations
@@ -18,6 +24,9 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..parallel import model_axis
+from ..parallel.spatial import active, conv_halo, halo
 
 BN_EPS = 1e-5
 
@@ -54,8 +63,18 @@ class BatchNorm2d(nn.BatchNorm2d):
     """
 
     process_group = None
+    model_shard = None
 
     def forward(self, x):
+        ms = self.model_shard
+        if ms is None:
+            return self.local(x)
+        return model_axis.gather(self.local(model_axis.enter(x, ms, True)),
+                                 ms)
+
+    def local(self, x):
+        """The normalisation of x, whose channels are this layer's own
+        (all of them, or its slice under the model axis)."""
         if not self.training:
             return super().forward(x)
         if self.process_group is not None:
@@ -100,9 +119,35 @@ class Conv2d(nn.Conv2d):
     """nn.Conv2d whose weight and bias are cast to the input's dtype at use
     (a no-op where they already have it)."""
 
+    model_shard = None
+    spatial_shard = None
+
     def forward(self, x):
+        ms = self.model_shard
+        if ms is None:
+            return self.local(x)
+        return model_axis.gather(self.local(self.enter(x)), ms)
+
+    def enter(self, x):
+        """x as `local` takes it under the model axis."""
+        return model_axis.enter(x, self.model_shard, self.groups > 1)
+
+    def local(self, x):
+        """The conv of this layer's own output channels, on this rank's
+        rows under the spatial axis."""
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        w = self.weight.to(x.dtype)
+        groups = self.groups
+        if self.model_shard is not None and groups > 1:
+            groups //= self.model_shard.size
+        padding = self.padding
+        sp = active(self.spatial_shard)
+        if sp is not None:
+            x = halo(x, *conv_halo(self.kernel_size[0], self.stride[0],
+                                   padding[0], self.dilation[0]), sp)
+            padding = (0, padding[1])
+        return F.conv2d(x, w, bias, self.stride, padding, self.dilation,
+                        groups)
 
 
 def conv2d(cin: int, cout: int, kernel: int, stride: int = 1,
@@ -111,6 +156,17 @@ def conv2d(cin: int, cout: int, kernel: int, stride: int = 1,
     pad = dilation * (kernel - 1) // 2
     return Conv2d(cin, cout, kernel, stride=stride, padding=pad,
                   dilation=dilation, bias=bias, groups=groups)
+
+
+def conv_bn(conv: Conv2d, bn: BatchNorm2d, x, act: bool = False):
+    """bn(conv(x)), with LeakyReLU after it when `act`; under the model
+    axis the three run on this rank's channels and gather once."""
+    ms = conv.model_shard
+    if ms is None or bn.model_shard is None:
+        y = bn(conv(x))
+        return leaky_relu(y) if act else y
+    y = bn.local(conv.local(conv.enter(x)))
+    return model_axis.gather(leaky_relu(y) if act else y, ms)
 
 
 class ConvBNAct(nn.Module):
@@ -124,8 +180,7 @@ class ConvBNAct(nn.Module):
         self.act = act
 
     def forward(self, x):
-        x = self.BatchNorm_0(self.Conv_0(x))
-        return leaky_relu(x) if self.act else x
+        return conv_bn(self.Conv_0, self.BatchNorm_0, x, self.act)
 
 
 def fold_bands(x, num_rows: int, pad: int):
@@ -149,7 +204,14 @@ class LocalConv2d(nn.Module):
     `num_rows` horizontal bands, each with its own k x k kernel and bias.
     The bands fold into channel groups (band-major) and run as one grouped
     convolution; the kernel [r*F, C, k, k] holds band i's in rows
-    i*F .. (i+1)*F - 1."""
+    i*F .. (i+1)*F - 1.
+
+    Under the spatial axis a rank runs the bands its rows cover (picked by
+    global row), on its slab with the halo rows; under the model axis its
+    F/mp channels of every band (`Conv_0` holds them band-major)."""
+
+    model_shard = None
+    spatial_shard = None
 
     def __init__(self, cin: int, num_rows: int, features: int,
                  kernel: int = 3):
@@ -158,13 +220,54 @@ class LocalConv2d(nn.Module):
         self.pad = kernel // 2
         self.Conv_0 = Conv2d(num_rows * cin, num_rows * features, kernel,
                              padding=0, groups=num_rows, bias=True)
+        self.Conv_0._bands = num_rows
 
     def forward(self, x):
-        r = self.num_rows
-        y = self.Conv_0(fold_bands(x, r, self.pad))       # [B, r*F, t, W]
-        B, RF, t, W = y.shape
-        return y.reshape(B, r, RF // r, t, W).transpose(1, 2).reshape(
-            B, RF // r, r * t, W).contiguous(memory_format=torch.channels_last)
+        r, p = self.num_rows, self.pad
+        ms = self.Conv_0.model_shard
+        sp = active(self.spatial_shard)
+        if ms is None and sp is None:
+            y = self.Conv_0(fold_bands(x, r, p))          # [B, r*F, t, W]
+            return _unfold_bands(y, r)
+        if ms is not None:
+            x = model_axis.copy_to(x, ms)
+        w, b = self.Conv_0.weight.to(x.dtype), self.Conv_0.bias.to(x.dtype)
+        bands, first = r, 0
+        if sp is not None:
+            if r % sp.size:
+                raise ValueError(f"{r} row bands over {sp.size} spatial "
+                                 "ranks")
+            bands = r // sp.size
+            first = sp.index * bands
+            F_ = w.shape[0] // r
+            w = w[first * F_:(first + bands) * F_]
+            b = b[first * F_:(first + bands) * F_]
+            xe = halo(x, p, p, sp)
+        else:
+            xe = F.pad(x, (0, 0, p, p))
+        y = F.conv2d(_fold_rows(F.pad(xe, (p, p)), bands, p), w, b,
+                     groups=bands)
+        y = _unfold_bands(y, bands)
+        return model_axis.gather(y, ms) if ms is not None else y
+
+
+def _fold_rows(xp, num_rows: int, pad: int):
+    """Bands of an x [B, C, r*t + 2 pad, W + 2 pad] already padded by `pad`
+    on every side, folded band-major into channels (see `fold_bands`)."""
+    B, C, Hp, Wp = xp.shape
+    t = (Hp - 2 * pad) // num_rows
+    bands = torch.stack([xp[:, :, i * t:i * t + t + 2 * pad]
+                         for i in range(num_rows)], dim=1)
+    return bands.reshape(B, num_rows * C, t + 2 * pad, Wp).contiguous(
+        memory_format=torch.channels_last)
+
+
+def _unfold_bands(y, num_rows: int):
+    """[B, r*F, t, W] band-major -> [B, F, r*t, W]."""
+    B, RF, t, W = y.shape
+    r = num_rows
+    return y.reshape(B, r, RF // r, t, W).transpose(1, 2).reshape(
+        B, RF // r, r * t, W).contiguous(memory_format=torch.channels_last)
 
 
 def bilinear_upsample_kernel(f: int, channels: int) -> torch.Tensor:
@@ -191,10 +294,29 @@ class BilinearUpsample(nn.ConvTranspose2d):
         with torch.no_grad():
             self.weight.copy_(bilinear_upsample_kernel(factor, channels))
 
+    model_shard = None
+    spatial_shard = None
+
     def forward(self, x):
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), None,
-                                  self.stride, self.padding, 0, self.groups,
-                                  self.dilation)
+        ms = self.model_shard
+        groups = self.groups
+        if ms is not None:
+            x = model_axis.enter(x, ms, True)
+            groups //= ms.size
+        w = self.weight.to(x.dtype)
+        sp = active(self.spatial_shard)
+        if sp is None:
+            y = F.conv_transpose2d(x, w, None, self.stride, self.padding, 0,
+                                   groups, self.dilation)
+        else:
+            # one input row each side; output row j of the slab is row
+            # j + p + f of the transposed conv of the extended slab
+            f, p = self.stride[0], self.padding[0]
+            y = F.conv_transpose2d(halo(x, 1, 1, sp), w, None, self.stride,
+                                   (0, self.padding[1]), 0, groups,
+                                   self.dilation)
+            y = y[:, :, p + f:p + f + f * x.shape[2]]
+        return model_axis.gather(y, ms) if ms is not None else y
 
 
 def adaptive_avg_pool2d(x, out_h: int, out_w: int):

@@ -6,6 +6,11 @@ node convs are deformable (DCNv2 with learned offsets) when `use_dcn` is on,
 plain 3x3 convs otherwise. With `shift_clamp` set (the flagship: 1.0) every
 deformable layer runs `ops.dcn.dcn_v2_shift`, which on the card is the
 hand-written kernel: 8 layers for DLASeg(dla102).
+
+Under the spatial axis (`build(mesh=...)`, parallel/spatial.py) DLASeg
+runs on its rank's rows of every level and gathers the output map along
+height; under the model axis a DCN runs on its own output channels
+(parallel/model_axis.py).
 """
 
 from __future__ import annotations
@@ -15,8 +20,11 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from ..ops.dcn import bilinear_sample, dcn_v2, dcn_v2_shift
+from ..ops.dcn import bilinear_sample, dcn_v2, dcn_v2_shift, shift_geometry
+from ..parallel import model_axis
+from ..parallel.spatial import active, gather_rows, halo
 from .dla import make_dla
 from .layers import (BilinearUpsample, Conv2d, batch_norm, conv2d,
                      fold_bands, leaky_relu)
@@ -47,14 +55,33 @@ class DCN(nn.Module):
         return (self.shift_clamp is not None and self.stride == 1
                 and self.dilation == 1)
 
+    model_shard = None
+    spatial_shard = None
+
     def forward(self, x):
+        ms = self.model_shard
+        y = self.local(x)
+        return model_axis.gather(y, ms) if ms is not None else y
+
+    def local(self, x):
+        """This layer's own output channels (all, or its slice under the
+        model axis), on this rank's rows under the spatial axis."""
         KK = self.kernel * self.kernel
         om = self.conv_offset_mask(x).permute(0, 2, 3, 1)     # [B,H,W,3KK]
         offset = torch.stack([om[..., :KK], om[..., KK:2 * KK]], dim=-1)
         mask = torch.sigmoid(om[..., 2 * KK:])
-        xh = x.permute(0, 2, 3, 1).contiguous()               # NHWC
+        ms = self.model_shard
+        if ms is not None:
+            # each rank's call differentiates x, offset and mask by its
+            # own output channels only
+            x, offset, mask = (model_axis.copy_to(t, ms)
+                               for t in (x, offset, mask))
         weight = self.weight.to(x.dtype)
         bias = self.bias.to(x.dtype)
+        sp = active(self.spatial_shard)
+        if sp is not None:
+            return self._slab(x, offset, mask, weight, bias, sp)
+        xh = x.permute(0, 2, 3, 1).contiguous()               # NHWC
         if self.uses_shift:
             y = dcn_v2_shift(xh, offset, mask, weight, bias,
                              clamp=float(self.shift_clamp))
@@ -63,6 +90,31 @@ class DCN(nn.Module):
                        padding=self.dilation * (self.kernel - 1) // 2,
                        dilation=self.dilation)
         return y.permute(0, 3, 1, 2)                          # channels_last
+
+    def _slab(self, x, offset, mask, weight, bias, sp):
+        """The layer on this rank's rows. The shift form reads K//2 +
+        ceil(clamp) rows past the slab: the kernel runs on the slab with
+        that halo (offsets and mask zero on the halo rows, whose outputs
+        are cut off). The unclamped form reaches any row: it reads the
+        gathered map at this rank's output rows."""
+        h = offset.shape[1]
+        if self.uses_shift:
+            pad, R, _ = shift_geometry(float(self.shift_clamp), self.kernel)
+            P = pad + R
+            xh = halo(x, P, P, sp).permute(0, 2, 3, 1).contiguous()
+            offset = F.pad(offset, (0, 0, 0, 0, 0, 0, P, P))
+            mask = F.pad(mask, (0, 0, 0, 0, P, P))
+            y = dcn_v2_shift(xh, offset, mask, weight, bias,
+                             clamp=float(self.shift_clamp))[:, P:P + h]
+        else:
+            xh = gather_rows(x, sp, reduce_grad=True).permute(
+                0, 2, 3, 1).contiguous()
+            shift = offset.new_tensor([sp.index * h * self.stride, 0.0])
+            y = dcn_v2(xh, offset + shift, mask, weight, bias,
+                       stride=self.stride,
+                       padding=self.dilation * (self.kernel - 1) // 2,
+                       dilation=self.dilation)
+        return y.permute(0, 3, 1, 2)
 
 
 class DeformConv(nn.Module):
@@ -75,7 +127,11 @@ class DeformConv(nn.Module):
         self.BatchNorm_0 = batch_norm(features)
 
     def forward(self, x):
-        return leaky_relu(self.BatchNorm_0(self.DCN_0(x)))
+        ms = self.DCN_0.model_shard
+        if ms is None or self.BatchNorm_0.model_shard is None:
+            return leaky_relu(self.BatchNorm_0(self.DCN_0(x)))
+        y = leaky_relu(self.BatchNorm_0.local(self.DCN_0.local(x)))
+        return model_axis.gather(y, ms)
 
 
 class DeformLocConv(nn.Module):
@@ -87,6 +143,8 @@ class DeformLocConv(nn.Module):
     through `ops.dcn.bilinear_sample` and multiply their own weight
     `[r, KK*C, F]` (row k*C + c: tap k, channel c). No config builds it.
     """
+
+    model_shard = None
 
     def __init__(self, cin: int, features: int, num_rows: int,
                  kernel: int = 3):
@@ -106,6 +164,9 @@ class DeformLocConv(nn.Module):
         F_ = self.weight.shape[-1]
         folded = fold_bands(x, r, pad)                  # [B, r*C, t+2p, W+2p]
         om = self.conv_offset_mask(folded).reshape(B, r, 3 * KK, t, W)
+        ms = self.model_shard
+        if ms is not None:
+            folded, om = (model_axis.copy_to(v, ms) for v in (folded, om))
         om = om.permute(0, 1, 3, 4, 2).reshape(B * r, t, W, 3 * KK)
         f32 = torch.float32
         o_y, o_x = om[..., :KK].to(f32), om[..., KK:2 * KK].to(f32)
@@ -129,7 +190,9 @@ class DeformLocConv(nn.Module):
         y = (y + self.bias.to(acc)[None, :, None, :]).to(x.dtype)
         y = y.reshape(B, H, W, F_).permute(0, 3, 1, 2).contiguous(
             memory_format=torch.channels_last)
-        return leaky_relu(self.BatchNorm_0(y))
+        if ms is None:
+            return leaky_relu(self.BatchNorm_0(y))
+        return model_axis.gather(leaky_relu(self.BatchNorm_0.local(y)), ms)
 
 
 class PlainConv(nn.Module):
@@ -219,8 +282,31 @@ class DLASeg(nn.Module):
                             [2 ** i for i in range(n_final)],
                             use_dcn=use_dcn, shift_clamp=shift_clamp)
 
+    spatial_shard = None
+
     def forward(self, images, packed: bool = False):
         """images NHWC (see DLA.forward); returns NCHW (channels_last)."""
+        return self.forward_rows(images, packed)[0]
+
+    def forward_rows(self, images, packed: bool = False):
+        """(`forward`'s map, whether this forward ran on slabs).
+
+        Under the spatial axis, when every level's height divides by the
+        axis, each rank runs its rows and the map is gathered along height
+        at the end (the whole map on every rank)."""
+        sp = self.spatial_shard
+        if sp is None:
+            return self._levels(images, packed), False
+        H = images.shape[1] * (2 if packed else 1)
+        on_slabs = sp.check(H, 2 ** (len(self.base.channels) - 1))
+        sp.active = on_slabs
+        try:
+            y = self._levels(images, packed)
+        finally:
+            sp.active = False
+        return (gather_rows(y, sp), True) if on_slabs else (y, False)
+
+    def _levels(self, images, packed):
         levels = self.base(images, packed=packed)
         agg = self.dla_up(levels[self.first_level:])
         n_final = self.last_level - self.first_level

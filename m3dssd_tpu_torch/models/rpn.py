@@ -26,7 +26,7 @@ from ..utils.device import resolve_device
 from .align import CenterAlign, ShapeAlign, confident_topm
 from .attention import ANAB
 from .layers import BatchNorm2d, BilinearUpsample, batch_norm, \
-    bilinear_upsample_kernel, conv2d, leaky_relu
+    bilinear_upsample_kernel, conv2d, conv_bn, leaky_relu
 from .necks import DCN, DeformLocConv, DLASeg
 
 
@@ -54,8 +54,8 @@ class Tower(nn.Module):
         self.Conv_2 = conv2d(hidden, out_features, 1)
 
     def forward(self, x):
-        x = leaky_relu(self.BatchNorm_0(self.Conv_0(x)))
-        x = leaky_relu(self.BatchNorm_1(self.Conv_1(x)))
+        x = conv_bn(self.Conv_0, self.BatchNorm_0, x, act=True)
+        x = conv_bn(self.Conv_1, self.BatchNorm_1, x, act=True)
         return self.Conv_2(x)
 
 
@@ -109,7 +109,7 @@ class M3DRPN(nn.Module):
     def forward(self, images, packed: bool = False) -> Dict[str, torch.Tensor]:
         """images [B, H, W, 3] (NHWC), or with `packed` their space-to-depth
         packing [B, H/2, W/2, 12]."""
-        x = self.base(images, packed=packed)
+        x, on_slabs = self.base.forward_rows(images, packed=packed)
         B, _, H, W = x.shape
         A, NC = self.num_anchors, self.num_classes
 
@@ -186,6 +186,7 @@ class M3DRPN(nn.Module):
                                     flat(bbox_h3d), flat(bbox_l3d),
                                     flat(bbox_rY3d)], dim=1),
             "feat_size": (H, W),
+            "on_slabs": on_slabs,
         }
 
 
@@ -198,8 +199,12 @@ def bias_background(model: M3DRPN, num_classes: int, bias: float = 4.0):
     regime the sparse alignment path sees in deployment. bias=4.0 gives
     P(bg) ~= e^4/(e^4 + C-1) ~= 0.95.
     """
+    conv = model.cls_tower.Conv_2
+    first = 0
+    if conv.model_shard is not None:      # this rank's slice of the bias
+        first = conv.model_shard.index * conv.bias.numel()
     with torch.no_grad():
-        model.cls_tower.Conv_2.bias[0::num_classes] += bias
+        conv.bias[(-first) % num_classes::num_classes] += bias
     return model
 
 
@@ -267,8 +272,42 @@ def _cast_params(model: nn.Module, dtype: torch.dtype) -> None:
             mod.running_var.data = mod.running_var.data.to(dtype)
 
 
+def apply_mesh(model: M3DRPN, mesh) -> M3DRPN:
+    """Lay `model` out over `mesh` (`parallel.make_mesh`), in place:
+    train-mode BatchNorm over the data and spatial ranks in the backbone
+    (DLASeg) and over the data ranks in the head (computed whole on every
+    spatial rank); DLASeg on this rank's rows under a spatial axis; this
+    rank's slice of every leaf the reference's rule shards
+    (`parallel/model_axis.py`) under a model axis.
+
+    `model.grad_groups` records each parameter's reduction group for a step
+    whose DLASeg ran on slabs (the forward's "on_slabs"): the data and
+    spatial ranks for the backbone's, whose gradients are partial per
+    spatial rank; the data ranks for the head's."""
+    from ..parallel.model_axis import ModelShard, shard_model
+    from ..parallel.spatial import SpatialShard
+
+    in_base = {id(m) for m in model.base.modules()}
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.process_group = (mesh.batch_group if id(m) in in_base
+                               else mesh.group)
+    in_base = {id(p) for p in model.base.parameters()}
+    model.grad_groups = {n: (mesh.batch_group if id(p) in in_base
+                             else mesh.group)
+                         for n, p in model.named_parameters()}
+    if mesh.spatial > 1:
+        shard = SpatialShard(mesh.s, mesh.spatial, mesh.spatial_group)
+        for m in model.base.modules():
+            if hasattr(m, "spatial_shard"):
+                m.spatial_shard = shard
+    if mesh.model > 1:
+        shard_model(model, ModelShard(mesh.m, mesh.model, mesh.model_group))
+    return model
+
+
 def build(conf, device=None, seed: int = 0, phase: str = "eval",
-          group=None) -> M3DRPN:
+          group=None, mesh=None) -> M3DRPN:
     """Build the detector for `conf`, initialised from `seed`.
 
     Runs on the card unless `device` names another device (`"cpu"` for the
@@ -283,7 +322,9 @@ def build(conf, device=None, seed: int = 0, phase: str = "eval",
 
     `group`: the process group of a data axis (`parallel.make_mesh`); its
     BatchNorm layers then take their train-mode statistics over the
-    group's global batch (`parallel/sync_bn.py`).
+    group's global batch (`parallel/sync_bn.py`). `mesh`: a mesh of
+    `parallel.make_mesh`, its axes laid out by `apply_mesh` (its data group
+    takes `group`'s place).
     """
     if phase not in ("eval", "train"):
         raise ValueError(f"phase {phase!r}: 'eval' or 'train'")
@@ -303,6 +344,8 @@ def build(conf, device=None, seed: int = 0, phase: str = "eval",
         sparse_align_topm=int(conf.sparse_align_topm),
         sparse_align_train=bool(conf.sparse_align_train))
     init_weights(model, torch.Generator().manual_seed(seed))
+    if mesh is not None:
+        group = None
     if group is not None:
         for m in model.modules():
             if isinstance(m, BatchNorm2d):
@@ -317,4 +360,6 @@ def build(conf, device=None, seed: int = 0, phase: str = "eval",
         model.requires_grad_(False)
         model.eval()
         _cast_params(model, dtype)
+    if mesh is not None:
+        apply_mesh(model, mesh)
     return model.to(dev)

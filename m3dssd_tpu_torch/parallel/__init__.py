@@ -1,5 +1,7 @@
-"""Data parallelism over processes (`mesh.py`) with BatchNorm over the
-global batch (`sync_bn.py`)."""
+"""Parallelism over processes: the data, spatial and model axes of a mesh
+(`mesh.py`), BatchNorm over the global batch (`sync_bn.py`), DLASeg on
+slabs of image rows (`spatial.py`) and the wide layers' output channels
+sharded (`model_axis.py`)."""
 
 from .mesh import (Mesh, all_reduce_grads, barrier, broadcast_one_to_all,
                    gather_to_primary, init_distributed, make_mesh,

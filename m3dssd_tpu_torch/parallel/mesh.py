@@ -1,24 +1,35 @@
-"""Data parallelism over processes: the data axis of the reference
-package's `parallel/mesh.py`.
+"""The process mesh of the reference package's `parallel/mesh.py`: the
+data, spatial and model axes over processes.
 
 One process runs per card, started by torchrun (`python -m
-torch.distributed.run --nproc_per_node k ...`). Every rank holds the whole
-model; rank r takes rows [r B/W, (r+1) B/W) of each global batch of B rows
-(the loader decodes only those, `data/loader.py`). A step over W ranks
+torch.distributed.run --nproc_per_node k ...`). `make_mesh(n, spatial=sp,
+model=mp)` lays the first n ranks out as the reference lays its devices:
+(data, spatial, model) with model fastest, so rank r sits at
+(r // (sp mp), (r // mp) % sp, r % mp) and the data axis has
+dp = n / (sp mp) ranks.
+
+The data axis. Rank d of dp takes rows [d B/dp, (d+1) B/dp) of each global
+batch of B rows (the loader decodes only those, `data/loader.py`); every
+spatial and model rank of one data coordinate takes the same rows. A step
 computes the single-process step on the global batch, as the reference's
 GSPMD step over a 'data' mesh does:
 
   * BatchNorm normalises by the statistics of the global batch
-    (`parallel/sync_bn.py`, used by the models `build(group=...)` makes);
+    (`parallel/sync_bn.py`, used by the models `build(mesh=...)` makes);
   * the loss's batch-wide counts and the denominators of its means are
     global (`losses/rpn_loss.py`), so each rank's loss is its share of the
     global loss;
   * the gradients are summed over the ranks (`all_reduce_grads`), which
     gives the gradient of the global loss.
 
-Only the data axis is ported. The reference's 'spatial' and 'model' axes
-(image height and wide output channels sharded across devices) raise
-`NotImplementedError`; they stay queued in ROADMAP.md (queue 1, item 3).
+The spatial axis (`parallel/spatial.py`) shards the backbone's image
+height: each rank runs DLASeg on its rows with halo exchanges and the
+head on the gathered map. The model axis (`parallel/model_axis.py`)
+shards the wide layers' output channels, with their BN statistics and
+momentum. Backbone gradients are partial per spatial rank and are summed
+over data x spatial; the head, computed whole on every spatial rank, is
+summed over data only. The model ranks' copies of a replicated parameter
+get equal gradients; a sharded parameter's gradient is its own slice.
 """
 
 from __future__ import annotations
@@ -35,29 +46,46 @@ from ..utils.device import resolve_device
 # gradients and state travel in flat buckets of about this size, one
 # collective each (DistributedDataParallel's default bucket size)
 BUCKET_BYTES = 25 * 2 ** 20
-UNPORTED_AXES = ("the spatial and model mesh axes are not ported "
-                 "(ROADMAP.md, queue 1, item 3: the spatial and model axes)")
+AXES = ("data", "spatial", "model")
 
 
 @dataclasses.dataclass
 class Mesh:
-    """The data axis as this process sees it: its `rank` among the `size`
-    ranks of `group`, and the device it computes on. A process whose global
-    rank is not below `size` is outside the axis (`member` is False) and
-    takes part in none of its collectives. `group` is None for one process
-    without torch.distributed; collectives then do nothing."""
+    """The mesh as this process sees it. `rank` and `size` are its data
+    coordinate and the data axis's extent, `group` the data axis through
+    this rank (the ranks of its spatial and model coordinates); `s` and `m`
+    are its spatial and model coordinates among `spatial` and `model`
+    ranks. `batch_group` spans the data and spatial axes (BatchNorm and the
+    backbone's gradients), `mesh_group` every rank of the mesh. A group that
+    spans the whole process group is WORLD (also a world of one rank, where
+    the group BN runs alone); otherwise it is None where its axis holds one
+    rank. A process whose global rank is not
+    below the mesh's rank count is outside the mesh (`member` is False) and
+    takes part in none of its collectives."""
     rank: int
     size: int
     group: Optional[Any]
     device: torch.device
+    global_rank: int = 0
+    spatial: int = 1
+    model: int = 1
+    s: int = 0
+    m: int = 0
+    spatial_group: Optional[Any] = None
+    model_group: Optional[Any] = None
+    batch_group: Optional[Any] = None
+    mesh_group: Optional[Any] = None
 
     @property
     def member(self) -> bool:
-        return self.rank < self.size
+        return self.global_rank < self.size * self.spatial * self.model
 
     @property
     def primary(self) -> bool:
-        return self.rank == 0
+        return self.global_rank == 0
+
+    def __deepcopy__(self, memo):
+        return self
 
 
 def world() -> tuple:
@@ -77,10 +105,9 @@ def init_distributed(backend: Optional[str] = None, device=None,
     The backend is NCCL for a card (the rank's device is cuda:LOCAL_RANK,
     made current here) and gloo for `device="cpu"`. A caller may pass
     backend="gloo" with CUDA tensors: NCCL refuses two ranks on one card,
-    gloo holds them, moving CUDA tensors through the host for all_reduce,
-    broadcast and barrier (the only collectives the port runs on them).
-    `init_method` may name a `file://` store instead of the environment's
-    address.
+    gloo holds them, moving CUDA tensors through the host (`all_gather`
+    below stages them itself). `init_method` may name a `file://` store
+    instead of the environment's address.
     """
     if dist.is_initialized():
         return dist.get_world_size()
@@ -99,30 +126,71 @@ def init_distributed(backend: Optional[str] = None, device=None,
     return dist.get_world_size()
 
 
+def mesh_coords(rank: int, spatial: int = 1, model: int = 1) -> tuple:
+    """(data, spatial, model) coordinates of mesh rank `rank`: the
+    reference's device layout, model fastest."""
+    return (rank // (spatial * model), (rank // model) % spatial,
+            rank % model)
+
+
+def axis_groups(n: int, spatial: int = 1, model: int = 1
+                ) -> Dict[str, List[List[int]]]:
+    """The rank lists of every group of a mesh of n ranks, by axis set:
+    "data", "spatial", "model" (the ranks that differ only in that
+    coordinate), "batch" (data and spatial: the ranks of one model
+    coordinate) and "mesh" (all n)."""
+    coords = [mesh_coords(r, spatial, model) for r in range(n)]
+    keep = {"data": (1, 2), "spatial": (0, 2), "model": (0, 1),
+            "batch": (2,), "mesh": ()}
+    out = {}
+    for name, fixed in keep.items():
+        lists: Dict[tuple, List[int]] = {}
+        for r, c in enumerate(coords):
+            lists.setdefault(tuple(c[i] for i in fixed), []).append(r)
+        out[name] = [lists[k] for k in sorted(lists)]
+    return out
+
+
 def make_mesh(n_devices: int = -1, spatial: int = 1, model: int = 1,
               device=None) -> Mesh:
-    """The data axis over the first `n_devices` ranks (-1, 0 or None: every
-    rank). Every rank of the default group calls it (a sub-axis makes a new
-    group). `device` defaults to the rank's card (`resolve_device`); under
-    torchrun with NCCL that is cuda:LOCAL_RANK.
+    """The mesh over the first `n_devices` ranks (-1, 0 or None: every
+    rank), `spatial` x `model` of them per data coordinate. Every rank of
+    the default group calls it (the axes make new groups). `device`
+    defaults to the rank's card (`resolve_device`); under torchrun with
+    NCCL that is cuda:LOCAL_RANK.
 
     On a card, local rank 0 builds the CUDA kernels while the other ranks
     of its host wait at a barrier, so a fresh tree runs nvcc once per host.
     """
-    if max(spatial, 1) > 1 or max(model, 1) > 1:
-        raise NotImplementedError(UNPORTED_AXES)
+    sp, mp = max(int(spatial), 1), max(int(model), 1)
     rank, size = world()
     n = size if n_devices in (-1, 0, None) else int(n_devices)
     if not 1 <= n <= size:
-        raise ValueError(f"a data axis of {n} ranks in a world of {size}")
+        raise ValueError(f"a mesh of {n} ranks in a world of {size}")
+    if n % (sp * mp):
+        raise ValueError(f"{n} ranks do not split into spatial {sp} x "
+                         f"model {mp}")
     dev = resolve_device(device)
-    if size == 1 and not dist.is_initialized():
-        group = None
-    elif n == size:
-        group = dist.group.WORLD
-    else:
-        group = dist.new_group(list(range(n)))
-    mesh = Mesh(rank=rank, size=n, group=group, device=dev)
+    whole = list(range(size)) if dist.is_initialized() else None
+    made: Dict[tuple, Any] = {}
+    mine: Dict[str, Any] = {}
+    for axis, lists in axis_groups(n, sp, mp).items():
+        for ranks in lists:
+            # every rank makes every group, in one order; equal rank lists
+            # share one group
+            key = tuple(ranks)
+            if key not in made:
+                made[key] = (dist.group.WORLD if ranks == whole else
+                             dist.new_group(ranks) if len(ranks) > 1
+                             else None)
+            if rank in ranks:
+                mine[axis] = made[key]
+    d, s, m = mesh_coords(rank, sp, mp) if rank < n else (rank, 0, 0)
+    mesh = Mesh(rank=d, size=n // (sp * mp), group=mine.get("data"),
+                device=dev, global_rank=rank, spatial=sp, model=mp, s=s, m=m,
+                spatial_group=mine.get("spatial"),
+                model_group=mine.get("model"), batch_group=mine.get("batch"),
+                mesh_group=mine.get("mesh"))
     if dev.type == "cuda" and mesh.member:
         build_kernels(mesh)
     return mesh
@@ -133,7 +201,7 @@ def build_kernels(mesh: Mesh) -> None:
     other ranks wait at a barrier, then let them find the libraries."""
     from ..ops import _build
 
-    local = int(os.environ.get("LOCAL_RANK", mesh.rank))
+    local = int(os.environ.get("LOCAL_RANK", mesh.global_rank))
     if local == 0:
         _build.build()
     barrier(mesh)
@@ -142,36 +210,38 @@ def build_kernels(mesh: Mesh) -> None:
 
 
 def barrier(mesh: Optional[Mesh]) -> None:
-    if mesh is not None and mesh.group is not None:
-        dist.barrier(group=mesh.group)
+    """Wait for every rank of the mesh."""
+    if mesh is not None and mesh.mesh_group is not None:
+        dist.barrier(group=mesh.mesh_group)
 
 
-def _object_device(mesh: Mesh) -> torch.device:
+def _object_device(mesh: Mesh, group) -> torch.device:
     """Where object collectives stage their bytes: NCCL moves only CUDA
     tensors, gloo takes host tensors."""
-    if dist.get_backend(mesh.group) == "nccl":
+    if dist.get_backend(group) == "nccl":
         return mesh.device
     return torch.device("cpu")
 
 
 def broadcast_one_to_all(value, mesh: Optional[Mesh]):
-    """Rank 0's `value` (any picklable object) on every rank: the twin of
-    JAX's `multihost_utils.broadcast_one_to_all`."""
-    if mesh is None or mesh.group is None:
+    """Rank 0's `value` (any picklable object) on every rank of the mesh:
+    the twin of JAX's `multihost_utils.broadcast_one_to_all`."""
+    if mesh is None or mesh.mesh_group is None:
         return value
     box = [value]
-    dist.broadcast_object_list(box, src=0, group=mesh.group,
-                               device=_object_device(mesh))
+    dist.broadcast_object_list(box, src=0, group=mesh.mesh_group,
+                               device=_object_device(mesh, mesh.mesh_group))
     return box[0]
 
 
 def gather_to_primary(value, mesh: Optional[Mesh]) -> Optional[List]:
-    """Every rank's `value` (picklable, on the host), in rank order, on rank
-    0; None on the other ranks."""
+    """Every data rank's `value` (picklable, on the host), in rank order,
+    on data rank 0 of this rank's data axis; None on the other ranks."""
     if mesh is None or mesh.group is None:
         return [value]
-    out = [None] * mesh.size if mesh.primary else None
-    dist.gather_object(value, out, dst=0, group=mesh.group)
+    out = [None] * mesh.size if mesh.rank == 0 else None
+    dist.gather_object(value, out, dst=dist.get_global_rank(mesh.group, 0),
+                       group=mesh.group)
     return out
 
 
@@ -183,8 +253,9 @@ def per_host_data_slicing_ok(mesh: Optional[Mesh]) -> bool:
 
 
 def shard_batch(mesh: Mesh, batch: Dict[str, Any]) -> Dict[str, Any]:
-    """This rank's rows of a global host batch: rows [r B/W, (r+1) B/W) of
-    every array's leading dim."""
+    """This rank's rows of a global host batch: rows [d B/dp, (d+1) B/dp)
+    of every array's leading dim, for data coordinate d (the spatial and
+    model ranks of one data coordinate take the same rows)."""
     out = {}
     for k, v in batch.items():
         B = v.shape[0]
@@ -237,15 +308,34 @@ def all_reduce_grads(grads: Sequence[torch.Tensor], group) -> int:
 
 def replicate_state(mesh: Mesh, state) -> None:
     """Rank 0's train state on every rank, in place: the model's parameters
-    and buffers, the optimizer's buffers and counts and the step."""
-    if mesh.group is None:
-        return
-    opt = state.optimizer
-    tensors = list(state.model.state_dict().values())
-    tensors += [t for n in sorted(opt.state)
-                for _, t in sorted(opt.state[n].items())]
-    tensors += [opt.acc[n] for n in sorted(opt.acc)]
-    _bucketed(tensors, lambda flat: dist.broadcast(flat, src=0,
-                                                   group=mesh.group))
-    state.step, opt.count, opt.mini_step = broadcast_one_to_all(
-        (state.step, opt.count, opt.mini_step), mesh)
+    and buffers, the optimizer's buffers and counts and the step. Under a
+    model axis each rank keeps its 1/mp slice of every sharded leaf and of
+    its momentum (the model holds them so since `build(mesh=...)`), so
+    each model coordinate takes the state of its rank on data and spatial
+    coordinate 0."""
+    if mesh.batch_group is not None:
+        opt = state.optimizer
+        tensors = list(state.model.state_dict().values())
+        tensors += [t for n in sorted(opt.state)
+                    for _, t in sorted(opt.state[n].items())]
+        tensors += [opt.acc[n] for n in sorted(opt.acc)]
+        src = dist.get_global_rank(mesh.batch_group, 0)
+        _bucketed(tensors, lambda flat: dist.broadcast(
+            flat, src=src, group=mesh.batch_group))
+    state.step, state.optimizer.count, state.optimizer.mini_step = \
+        broadcast_one_to_all((state.step, state.optimizer.count,
+                              state.optimizer.mini_step), mesh)
+
+
+def all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
+    """Every rank's `t` (one shape on every rank) in group rank order.
+    gloo moves a CUDA tensor through the host: it is staged there and
+    back here."""
+    n = dist.get_world_size(group)
+    stage = t.is_cuda and dist.get_backend(group) == "gloo"
+    src = (t.detach().to("cpu") if stage else t.detach()).contiguous()
+    if src.dtype == torch.bfloat16:     # a copy: moved as 16-bit words
+        src = src.view(torch.float16)
+    out = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(out, src, group=group)
+    return [o.view(t.dtype).to(t.device) for o in out]

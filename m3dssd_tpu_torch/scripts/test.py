@@ -18,8 +18,10 @@ results go to `results_parity_<tag>`.
 card, under torchrun (`python -m torch.distributed.run --nproc_per_node k
 -m m3dssd_tpu_torch.scripts.test --mesh_devices k ...`): each rank
 detects its share of the batches and rank 0 writes the txts and the AP
-(inference/test_driver.py). `--mesh_spatial` and `--mesh_model` above 1
-are not ported and raise.
+(inference/test_driver.py). `--mesh_spatial s` and `--mesh_model m` lay
+the k ranks out as k / (s m) data ranks, each of s spatial (image height)
+x m model (wide output channels) ranks; spatial and model rank 0 of each
+data rank contributes its rows.
 """
 
 from __future__ import annotations
@@ -53,9 +55,12 @@ def parse_args(argv=None):
                    help="data-parallel eval over this many processes; run "
                         "under torchrun --nproc_per_node with the same "
                         "count")
-    for name in ("--mesh_spatial", "--mesh_model"):
-        p.add_argument(name, type=int, default=1,
-                       help="not ported: must stay at most 1")
+    p.add_argument("--mesh_spatial", type=int, default=1,
+                   help="with --mesh_devices: also shard image height over "
+                        "this many ranks (the spatial axis)")
+    p.add_argument("--mesh_model", type=int, default=1,
+                   help="with --mesh_devices: shard the wide layers' output "
+                        "channels over this many ranks (the model axis)")
     return p.parse_args(argv)
 
 
@@ -99,14 +104,16 @@ def run_test(run_dir: str, data_root=None, step=None, phase="validation",
     """Evaluate the run's checkpoint of `step` (default the latest), or the
     original-model checkpoint `torch_weights`, on `phase` of `data_root`
     (or the in-memory `dataset` with its labels at `gt_path`), over the
-    data axis `mesh` when given (`parallel.make_mesh`). Returns (AP dict,
-    or None off rank 0; selection metric: mean Car 3D AP-R40)."""
+    mesh `mesh` when given (`parallel.make_mesh`; the model is built on
+    it, so a model axis evaluates on the shards in place). Returns (AP
+    dict, or None off rank 0; selection metric: mean Car 3D AP-R40)."""
     from ..anchors import locate_anchors
     from ..data.kitti import _PHASE_DIR, Kitti3DDataset
     from ..inference.detect import (make_batch_detector, make_detector,
                                     packed_input_eligible)
     from ..inference.test_driver import test_kitti_3d
     from ..models import build
+    from ..models.rpn import apply_mesh
     from ..utils.checkpoint import load_model_weights
 
     conf = load_conf(run_dir)
@@ -123,10 +130,12 @@ def run_test(run_dir: str, data_root=None, step=None, phase="validation",
             num_classes=conf.num_classes,
             block=reference_block(conf.back_bone))
         model.load_state_dict(new, strict=True)
+        if mesh is not None:
+            apply_mesh(model, mesh)
         tag = os.path.splitext(os.path.basename(torch_weights))[0]
         name = f"results_parity_{tag}"
     else:
-        model = build(conf, device=device)
+        model = build(conf, device=device, mesh=mesh)
         step = load_model_weights(model, os.path.join(run_dir, "weights"),
                                   step)
         name = f"results_test_{step}"
@@ -155,10 +164,9 @@ def run_test(run_dir: str, data_root=None, step=None, phase="validation",
 
 def main(argv=None):
     args = parse_args(argv)
-    if max(args.mesh_spatial, args.mesh_model) > 1:
-        raise NotImplementedError(
-            "--mesh_spatial / --mesh_model: the spatial and model mesh axes "
-            "are not ported (ROADMAP.md, queue 1, item 3)")
+    if max(args.mesh_spatial, args.mesh_model) > 1 and args.mesh_devices < 2:
+        raise ValueError("--mesh_spatial / --mesh_model need --mesh_devices "
+                         "k > 1 under torchrun")
     device = "cpu" if args.cpu else None
     if args.mesh_devices > 1:
         from ..parallel.mesh import init_distributed
@@ -174,7 +182,8 @@ def main(argv=None):
     mesh = None
     if args.mesh_devices > 1:
         par = importlib.import_module(f"{PACKAGE}.parallel.mesh")
-        mesh = par.make_mesh(args.mesh_devices, device=device)
+        mesh = par.make_mesh(args.mesh_devices, args.mesh_spatial,
+                             args.mesh_model, device=device)
     res, sel = mod.run_test(args.run_dir, args.data_root, step=args.step,
                             phase=args.phase,
                             torch_weights=args.torch_weights,

@@ -16,7 +16,9 @@ Data-parallel training runs one process per card under torchrun:
         --batch_size 8
 
 Each rank takes batch_size / k rows of every global batch; rank 0 writes
-the run directory (train/trainer.py).
+the run directory (train/trainer.py). `--mesh_spatial s` and
+`--mesh_model m` lay the k ranks out as k / (s m) data ranks, each of s
+spatial (image height) x m model (wide output channels) ranks.
 """
 
 from __future__ import annotations
@@ -49,16 +51,26 @@ def parse_args(argv=None):
                         "python -m torch.distributed.run --nproc_per_node k "
                         "-m m3dssd_tpu_torch.scripts.train --distributed ... "
                         "(NCCL on cards, gloo with --cpu)")
+    p.add_argument("--mesh_spatial", type=int, default=None,
+                   help="with --distributed: shard each image's height over "
+                        "this many ranks (the spatial axis)")
+    p.add_argument("--mesh_model", type=int, default=None,
+                   help="with --distributed: shard the wide layers' output "
+                        "channels over this many ranks (the model axis)")
     return p.parse_args(argv)
 
 
 def make_conf(config: str, batch_size=None, backbone=None, crop=None,
-              no_pretrain: bool = False):
+              no_pretrain: bool = False, mesh_spatial=None, mesh_model=None):
     """The named config with the CLI's overrides."""
     from ..config import load_config
 
     conf = load_config(config)
     over = {}
+    if mesh_spatial:
+        over["mesh_spatial"] = mesh_spatial
+    if mesh_model:
+        over["mesh_model"] = mesh_model
     if batch_size:
         over["batch_size"] = batch_size
     if backbone:
@@ -87,8 +99,10 @@ def run_train(conf, data_root, output: str, cache=None, epochs=None,
         restore_checkpoint(os.path.join(output, "weights"), trainer.state,
                            restore)
     trainer.run(epochs)
-    if trainer.primary:
-        save_seed(trainer.output_dir, trainer.model)
+    if trainer.mesh is None or trainer.mesh.member:
+        whole = trainer.whole_model_state()
+        if trainer.primary:
+            save_seed(trainer.output_dir, trainer.model, state_dict=whole)
     if timestamp:
         trainer.finalize_run_dir()
     return trainer
@@ -101,7 +115,7 @@ def main(argv=None):
 
         init_distributed(device="cpu" if args.cpu else None)
     conf = make_conf(args.config, args.batch_size, args.backbone, args.crop,
-                     args.no_pretrain)
+                     args.no_pretrain, args.mesh_spatial, args.mesh_model)
     tr = run_train(conf, args.data_root, args.output, cache=args.cache,
                    epochs=args.epochs, restore=args.restore,
                    timestamp=args.timestamp,

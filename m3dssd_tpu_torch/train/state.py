@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..losses.rpn_loss import RPNLossConfig, rpn_3d_loss
+from ..parallel import model_axis
 from ..parallel.mesh import all_reduce_grads
 from .lr import make_lr_schedule
 
@@ -86,6 +87,13 @@ class Optimizer:
         self.mini_step = 0
         self.state: Dict[str, Dict[str, torch.Tensor]] = {}
         self.acc: Dict[str, torch.Tensor] = {}
+        # under a model axis: the names whose tensors are this rank's
+        # slices, the group holding the other slices, and the whole ->
+        # slice map that loading applies (create_train_state sets them)
+        self.sharded: frozenset = frozenset()
+        self.shard_group = None
+        self.slicer: Optional[Callable[[str, torch.Tensor],
+                                       torch.Tensor]] = None
 
     def lr(self) -> float:
         """The learning rate of the next solver update."""
@@ -117,7 +125,7 @@ class Optimizer:
         g = [grads[n] for n in names]
         p = [params[n] for n in names]
         if self.clip_norm:
-            norm = torch.sqrt(sum(torch.sum(v * v) for v in g))
+            norm = torch.sqrt(self._sq_norm(names, g))
             keep = norm < self.clip_norm
             g = [torch.where(keep, v, (v / norm) * self.clip_norm) for v in g]
         if self.weight_decay:
@@ -153,6 +161,19 @@ class Optimizer:
                 param.add_(-lr * u)
         self.count += 1
 
+    def _sq_norm(self, names, g):
+        """The squared global norm of the gradients `g` of `names`: the
+        sharded ones' sum over the model group's slices."""
+        sq = [torch.sum(v * v) for v in g]
+        if not self.sharded:
+            return sum(sq)
+        own = sum((q for n, q in zip(names, sq) if n in self.sharded),
+                  torch.zeros_like(sq[0]))
+        own = own.clone()
+        torch.distributed.all_reduce(own, group=self.shard_group)
+        return sum((q for n, q in zip(names, sq) if n not in self.sharded),
+                   own)
+
     def state_dict(self) -> dict:
         return {"solver": self.solver, "count": self.count,
                 "mini_step": self.mini_step, "acc": dict(self.acc),
@@ -162,10 +183,12 @@ class Optimizer:
         if sd["solver"] != self.solver:
             raise ValueError(f"optimizer state of {sd['solver']}, this "
                              f"optimizer runs {self.solver}")
+        cut = self.slicer or (lambda n, t: t)
         self.count = int(sd["count"])
         self.mini_step = int(sd["mini_step"])
-        self.acc = dict(sd["acc"])
-        self.state = {n: dict(s) for n, s in sd["state"].items()}
+        self.acc = {n: cut(n, t) for n, t in sd["acc"].items()}
+        self.state = {n: {k: cut(n, t) for k, t in s.items()}
+                      for n, s in sd["state"].items()}
 
 
 @dataclasses.dataclass
@@ -188,12 +211,17 @@ def create_train_state(conf, model, max_iter: int,
         trainable_mask_fn = freeze_mask_fn(conf)
     names = [n for n, _ in model.named_parameters()]
     opt = Optimizer(conf, max_iter, names, trainable_mask_fn)
+    specs = model_axis.specs_of(model)
+    if specs:
+        opt.sharded = frozenset(specs)
+        opt.shard_group = model_axis.shard_group(model)
+        opt.slicer = lambda n, t: model_axis.slice_like(model, n, t)
     return TrainState(model=model, optimizer=opt, step=0,
                       trainable=trainable_mask_fn)
 
 
 def make_train_step(conf, rois: np.ndarray, packed_input: bool = False,
-                    group=None):
+                    group=None, mesh=None):
     """`train_step(state, batch, generator) -> stats`.
 
     batch: the loader's dict of tensors (images [B,H,W,3], or with
@@ -213,11 +241,23 @@ def make_train_step(conf, rois: np.ndarray, packed_input: bool = False,
     (`build(group=...)`). The loss is normalised over the global batch and
     the gradients are summed over the ranks before the optimizer, so the
     clip and the batch_skip accumulation see the global gradient; the
-    step's `reduced_bytes` attribute holds the bytes of its last
-    all-reduce. The model is not wrapped in DistributedDataParallel: its
+    step's `reduced_bytes` attribute holds the bytes its last call
+    reduced, and `on_slabs` whether that call's DLASeg ran on slabs. The
+    model is not wrapped in DistributedDataParallel: its
     reducer runs on gradients accumulated into `.grad`, which
     `torch.autograd.grad` never does.
+
+    `mesh` (`parallel.make_mesh`, with a model from `build(mesh=...)`):
+    its data group takes `group`'s place. When the forward says DLASeg ran
+    on slabs (the spatial axis), each gradient is summed over the group
+    `model.grad_groups` records for it (`models/rpn.py:apply_mesh`): the
+    backbone's, partial per spatial rank, over the data and spatial ranks;
+    the head's, computed whole on every spatial rank, over the data ranks
+    alone. Sharded leaves (the model axis) reduce their own slices the same
+    way, and the clip's norm counts every slice once.
     """
+    if mesh is not None:
+        group = mesh.group
     loss_cfg = RPNLossConfig.from_conf(conf)
     target_fn = None
     if not conf.pre_compute_target:
@@ -255,6 +295,7 @@ def make_train_step(conf, rois: np.ndarray, packed_input: bool = False,
                       if not state.trainable(n)}
         model.train()
         outputs = model(batch["images"], packed=packed_input)
+        on_slabs = outputs["on_slabs"]
         loss, stats = rpn_3d_loss(outputs, batch, *constants(dev), loss_cfg,
                                   generator, group=group)
         params = state.params()
@@ -264,8 +305,13 @@ def make_train_step(conf, rois: np.ndarray, packed_input: bool = False,
         del outputs, loss
         grads = {n: torch.zeros_like(params[n]) if g is None else g
                  for n, g in zip(names, grads)}
-        train_step.reduced_bytes = all_reduce_grads(list(grads.values()),
-                                                    group)
+        by_group = {}
+        for n, g in grads.items():
+            by_group.setdefault(model.grad_groups[n] if on_slabs else group,
+                                []).append(g)
+        train_step.reduced_bytes = sum(all_reduce_grads(gs, grp)
+                                       for grp, gs in by_group.items())
+        train_step.on_slabs = on_slabs
         state.optimizer.step(params, grads)
         if pinned:
             with torch.no_grad():
@@ -276,4 +322,5 @@ def make_train_step(conf, rois: np.ndarray, packed_input: bool = False,
         return stats
 
     train_step.reduced_bytes = 0
+    train_step.on_slabs = False
     return train_step

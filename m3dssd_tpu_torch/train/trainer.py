@@ -14,10 +14,11 @@ original model (utils/torch_import.py). Left out: video detection and the
 compilation cache.
 
 Under torch.distributed (one process per card, `parallel/mesh.py`) the
-Trainer trains data-parallel over a data axis of `conf.dp_devices` ranks,
-or else of the largest divisor of the batch size that fits the world, as
-the reference sizes its mesh. Each rank decodes only its rows of every
-global batch; the step is the single-process step on the global batch.
+Trainer trains over a mesh of `conf.dp_devices` data ranks (or else the
+largest divisor of the batch size that fits the world), each of
+conf.mesh_spatial x conf.mesh_model ranks, as the reference sizes its
+mesh. Each data rank decodes only its rows of every global batch; the
+step is the single-process step on the global batch.
 Rank 0 alone writes conf.pkl, the source snapshot, the checkpoints and
 the eval's txts; the other ranks log to log/train.p<rank>.log. Every rank
 takes part in the periodic eval and takes the same best-model branch.
@@ -42,7 +43,7 @@ from ..parallel.mesh import (barrier, make_mesh, per_host_data_slicing_ok,
                              replicate_state, world)
 from ..utils.checkpoint import (is_seed_checkpoint, restore_checkpoint,
                                 restore_seed, save_checkpoint,
-                                wait_for_saves)
+                                wait_for_saves, whole_state)
 from ..utils.device import resolve_device
 from ..utils.logging_utils import (StatTracker, compute_eta, init_logging,
                                    pretty_print)
@@ -56,23 +57,29 @@ from .state import create_train_state, make_train_step
 
 def data_parallel_size(conf, world_size: int) -> int:
     """The data axis's size: conf.dp_devices when set, else the largest
-    divisor of the global batch size that fits `world_size` ranks (the
-    axis splits every batch evenly). Logs a warning when it leaves ranks
-    idle, and raises when it is 1 under several processes: they would
-    each train apart."""
+    divisor of the global batch size that fits the world's ranks over
+    conf.mesh_spatial x conf.mesh_model (the axis splits every batch
+    evenly), as the reference sizes its mesh. Logs a warning when the mesh
+    leaves ranks idle, and raises when it is one rank under several
+    processes: they would each train apart."""
+    per = max(int(conf.mesh_spatial), 1) * max(int(conf.mesh_model), 1)
     if conf.dp_devices > 0:
         dp = int(conf.dp_devices)
     else:
-        dp = max(d for d in range(1, world_size + 1)
-                 if conf.batch_size % d == 0)
-    if dp == 1 and world_size > 1:
+        fit = max(world_size // per, 1)
+        dp = max(d for d in range(1, fit + 1) if conf.batch_size % d == 0)
+    n = dp * per
+    if n > world_size:
+        raise ValueError(f"a mesh of {dp} x {per} ranks in a world of "
+                         f"{world_size}")
+    if n == 1 and world_size > 1:
         raise ValueError(
             f"a data axis of 1 under {world_size} processes would train "
             "each process apart: set conf.dp_devices, or a batch size "
             f"({conf.batch_size}) with a divisor above 1 that fits them")
-    if dp < world_size:
-        logging.warning("a data axis of %d ranks in a world of %d: ranks "
-                        "%d and above idle", dp, world_size, dp)
+    if n < world_size:
+        logging.warning("a mesh of %d ranks in a world of %d: ranks "
+                        "%d and above idle", n, world_size, n)
     return dp
 
 
@@ -105,12 +112,14 @@ class Trainer:
         # batch per process
         self.mesh = None
         if world_size > 1:
-            self.mesh = make_mesh(data_parallel_size(conf, world_size),
-                                  conf.mesh_spatial, conf.mesh_model,
-                                  device=self.device)
-            logging.info("data axis: rank %d of %d", rank, self.mesh.size)
+            sp, mp = max(conf.mesh_spatial, 1), max(conf.mesh_model, 1)
+            self.mesh = make_mesh(data_parallel_size(conf, world_size)
+                                  * sp * mp, sp, mp, device=self.device)
+            m = self.mesh
+            logging.info("mesh: rank %d at data %d of %d, spatial %d of %d, "
+                         "model %d of %d", rank, m.rank, m.size, m.s,
+                         m.spatial, m.m, m.model)
         self.primary = rank == 0
-        group = None if self.mesh is None else self.mesh.group
         sliced = per_host_data_slicing_ok(self.mesh)
 
         self.dataset = dataset if dataset is not None else Kitti3DDataset(
@@ -128,12 +137,14 @@ class Trainer:
             conf.save(os.path.join(output_dir, "conf.pkl"))
             snapshot_source(output_dir)
 
+        mesh = self.mesh if self.mesh is not None and self.mesh.member \
+            else None
         self.model = build(conf, device=self.device, seed=conf.rng_seed,
-                           phase="train", group=group)
+                           phase="train", mesh=mesh)
         self.state = create_train_state(conf, self.model, self.max_iter)
         self.train_step = make_train_step(conf, self.dataset.rois,
                                           packed_input=self.packed_input,
-                                          group=group)
+                                          mesh=mesh)
         # one seed on every rank: the loss's random sampling draws the
         # global batch's scores from it
         self.generator = torch.Generator(device=self.device)
@@ -246,18 +257,13 @@ class Trainer:
                 eta, dt = compute_eta(t0, it - it0, self.max_iter - it0)
                 tracker.flush(it, extra=f"epoch {epoch} end dt {dt:.3f}s "
                                         f"eta {eta}")
-            if self.primary and ((epoch + 1) % conf.snapshot_epoch == 0
-                                 or epoch + 1 == epochs):
-                save_checkpoint(os.path.join(self.output_dir, "weights"),
-                                self.state, it, async_save=True)
+            if (epoch + 1) % conf.snapshot_epoch == 0 or epoch + 1 == epochs:
+                self._save("weights", it)
             if conf.do_test and (epoch + 1) % conf.eval_epoch == 0:
                 sel = self._eval(epoch + 1)
                 if sel > self.best_metric:
                     self.best_metric = sel
-                    if self.primary:
-                        save_checkpoint(os.path.join(self.output_dir,
-                                                     "weights_best"),
-                                        self.state, it, async_save=True)
+                    self._save("weights_best", it)
                     logging.info("new best model: %.4f", sel)
         wait_for_saves()
         if self.writer is not None:
@@ -265,6 +271,20 @@ class Trainer:
         # every checkpoint is on disk before any rank goes on to read one
         barrier(self.mesh)
         return self.state
+
+    def _save(self, name: str, it: int):
+        """Checkpoint the state into <run>/<name> on rank 0, in the
+        one-process layout (every rank takes part in gathering the model
+        axis's slices)."""
+        whole = whole_state(self.state)
+        if self.primary:
+            save_checkpoint(os.path.join(self.output_dir, name), self.state,
+                            it, async_save=True, whole=whole)
+
+    def whole_model_state(self):
+        """The model's state dict with whole tensors (every rank calls
+        it)."""
+        return whole_state(self.state)[0]
 
     def finalize_run_dir(self) -> str:
         """Rename the run directory to `<output_dir>_<best metric>` when an

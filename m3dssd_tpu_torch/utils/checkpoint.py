@@ -8,6 +8,10 @@ background thread (one save in flight at a time) and `wait_for_saves`
 blocks until every write is on disk, as the reference package's async
 checkpointer does.
 
+Under a model axis a checkpoint holds whole tensors, in the one-process
+layout (`whole_state`), and loading keeps each rank's slice, so a run
+saved at one model-axis extent restores at any other.
+
 A seed checkpoint (`save_seed`, `<ckpt_dir>/seed/seed.pt`) holds only the
 model's parameters and BatchNorm statistics, for a run that starts from
 trained weights with a fresh optimizer. `load_pretrained_params` copies
@@ -54,14 +58,30 @@ def wait_for_saves():
         _pending.pop(0).result()
 
 
+def whole_state(state):
+    """(model state dict, optimizer state dict) of `state` with whole
+    tensors: under a model axis (`build(mesh=...)`) the sharded leaves and
+    their buffers are gathered from the model group, so every model rank
+    calls this; otherwise the state's own dicts."""
+    from ..parallel import model_axis
+
+    if not model_axis.specs_of(state.model):
+        return state.model.state_dict(), state.optimizer.state_dict()
+    return (model_axis.full_state_dict(state.model),
+            model_axis.full_optimizer_state(state.model, state.optimizer))
+
+
 def save_checkpoint(ckpt_dir: str, state, step: int,
-                    async_save: bool = False) -> str:
+                    async_save: bool = False, whole=None) -> str:
     """Save the model, optimizer and step of `state` at
-    `ckpt_dir/step_<step>`; returns that directory."""
+    `ckpt_dir/step_<step>`; returns that directory. `whole`: the
+    (model, optimizer) state dicts of `whole_state(state)`, taken by every
+    rank of a model axis, to write in the one-process layout."""
     global _writer
     path = os.path.join(os.path.abspath(ckpt_dir), f"step_{step}")
-    payload = {"model": _host(state.model.state_dict()),
-               "optimizer": _host(state.optimizer.state_dict()),
+    model_sd, opt_sd = whole if whole is not None else (
+        state.model.state_dict(), state.optimizer.state_dict())
+    payload = {"model": _host(model_sd), "optimizer": _host(opt_sd),
                "step": int(state.step)}
     if async_save:
         wait_for_saves()                    # one save in flight at a time
@@ -117,14 +137,16 @@ def restore_checkpoint(ckpt_dir: str, state, step: Optional[int] = None):
 _SEED_FILE = "seed.pt"
 
 
-def save_seed(ckpt_dir: str, model) -> str:
+def save_seed(ckpt_dir: str, model, state_dict=None) -> str:
     """Save a seed checkpoint at `ckpt_dir/seed`: the model's parameters
-    and BatchNorm statistics only, no optimizer state and no step, so a
-    run with any solver can start from it. Returns that directory."""
+    and BatchNorm statistics only (`state_dict` when given: the whole
+    tensors of a model-sharded model), no optimizer state and no step, so
+    a run with any solver can start from it. Returns that directory."""
     path = os.path.join(os.path.abspath(ckpt_dir), "seed")
     os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, f".{_SEED_FILE}.{os.getpid()}.tmp")
-    torch.save({"model": _host(model.state_dict())}, tmp)
+    sd = model.state_dict() if state_dict is None else state_dict
+    torch.save({"model": _host(sd)}, tmp)
     os.replace(tmp, os.path.join(path, _SEED_FILE))
     logging.info("saved seed checkpoint %s", path)
     return path

@@ -37,6 +37,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from ..parallel import model_axis
+
 Converter = Callable[[torch.Tensor], torch.Tensor]
 
 # --------------------------------------------------------------------------
@@ -293,7 +295,8 @@ def load_reference_checkpoint(model: nn.Module, state_dict: Dict[str, Any],
         src = sd[ref_key]
         if not isinstance(src, torch.Tensor):
             src = torch.as_tensor(np.asarray(src))
-        new = conv(src)
+        # a model on a model axis (`build(mesh=...)`) holds its slice
+        new = model_axis.slice_like(model, key, conv(src))
         if tuple(new.shape) != tuple(val.shape):
             stats["shape_mismatch"].append(
                 f"{ref_key}: {tuple(new.shape)} vs {tuple(val.shape)}")

@@ -10,7 +10,8 @@ reference's, so the walk is mechanical; only the layouts change:
     convs too: LocalConv2d's [3, 3, C, r*F] kernel, band i in outputs
     i*F .. (i+1)*F - 1, needs no reordering);
   * BatchNorm scale/bias + batch_stats mean/var -> weight/bias +
-    running_mean/running_var (num_batches_tracked 0);
+    running_mean/running_var (num_batches_tracked 0; a GroupNorm's
+    scale/bias, with no statistics, -> weight/bias);
   * deformable and align weights [K, K, Cin, Cout] stay as they are (the
     layout the shift-DCN kernel takes), as do DeformLocConv's per-band
     weight [r, K*K*Cin, Cout] and bias [r, Cout];
@@ -71,10 +72,13 @@ def _param_entries(params) -> Iterator[Tuple[str, torch.Tensor]]:
 def from_flax_variables(variables) -> Dict[str, torch.Tensor]:
     """{"params", "batch_stats"} trees -> the port's state dict."""
     out: Dict[str, torch.Tensor] = dict(_param_entries(variables["params"]))
+    stats = variables.get("batch_stats", {})
+    # a BatchNorm's scale, not a GroupNorm's (which keeps no statistics)
+    with_stats = {path[:-1] for path, _ in _leaves(stats)}
     for path, _ in _leaves(variables["params"]):
-        if path[-1] == "scale":
+        if path[-1] == "scale" and path[:-1] in with_stats:
             out[_key(path, "num_batches_tracked")] = torch.tensor(0)
-    for path, leaf in _leaves(variables.get("batch_stats", {})):
+    for path, leaf in _leaves(stats):
         if path[-1] not in _STATS:
             raise KeyError(f"unknown statistic {'/'.join(path)}")
         out[_key(path, _STATS[path[-1]])] = _tensor(leaf)

@@ -53,7 +53,6 @@ from m3dssd_tpu_torch.losses.rpn_loss import RPNLossConfig, rpn_3d_loss
 from m3dssd_tpu_torch.models import bias_background, build, rpn
 from m3dssd_tpu_torch.models.layers import batch_norm
 from m3dssd_tpu_torch.parallel import make_mesh, shard_batch
-from m3dssd_tpu_torch.scripts import test as test_cli
 from m3dssd_tpu_torch.train.state import create_train_state, make_train_step
 from m3dssd_tpu_torch.train.trainer import Trainer, data_parallel_size
 from m3dssd_tpu_torch.utils.weights import from_flax_variables
@@ -720,21 +719,8 @@ def test_train_and_test_clis_under_torchrun(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# sizing and the axes that are not ported
+# sizing (the spatial and model axes: tests/test_torch_mesh_axes.py)
 # ---------------------------------------------------------------------------
-
-def test_unported_axes_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh(spatial=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_mesh(model=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        test_cli.main(["--run_dir", str(tmp_path), "--data_root",
-                       str(tmp_path), "--mesh_spatial", "2", "--cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        test_cli.main(["--run_dir", str(tmp_path), "--data_root",
-                       str(tmp_path), "--mesh_model", "2", "--cpu"])
-
 
 def test_one_process_mesh_needs_no_group():
     mesh = make_mesh(device="cpu")

@@ -187,7 +187,7 @@ def test_clis_raise_without_a_card_unless_asked_for_the_cpu(run):
         export_cli.main(["--run_dir", out, "--out", str(root / "x.pt2")])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         traj_cli.main(["--run", out, "--gt", str(root)])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="mesh_devices"):
         test_cli.main(["--run_dir", out, "--data_root", "x", "--cpu",
                        "--mesh_spatial", "2"])
     with pytest.raises(RuntimeError, match="torchrun"):
