@@ -34,16 +34,21 @@ two gloo ranks with image height sharded (halo exchanges) and with the
 wide layers' output channels sharded, against one process, every
 shift-DCN call of those runs (at slab heights and Cout / 2) against the
 plain version on its operands, with each rank's peak memory, parameter
-and momentum bytes and step time. Last, the train step with every
+and momentum bytes and step time. Then the train step with every
 option on: dla34_depth at
 512x1760 bs=8 bf16 with k-means anchors, photometric distortion in the
 loader and both 3D loss branches, with host and device targets, every
 DCN call of one such step against the plain version on its operands, the
 3D-GIoU branch alone, ops/iou3d.py against the CPU in float64, and a
-float32 card step against the float64 CPU step. Every kernel's launch count
-is set to 0 before a main-path run and read after it (a rank process
-counts its own); each phase prints its seconds. Any failed check ends the run
-with a non-zero exit code.
+float32 card step against the float64 CPU step. Last, the quality and
+serving CLIs' functions: learn_probe (DLA-34 at 384x1280 bs=4, variants
+run2 and plain), convergence_check over an in-memory split (two epochs,
+an eval after each, the train-split AP, and one more step whose DCN calls
+are held against the plain version) and serve_check on the flagship at
+512x1760 (the exported artifact against live detect). Every kernel's
+launch count is set to 0 before a main-path run and read after it (a rank
+process counts its own); each phase prints its seconds. Any failed check
+ends the run with a non-zero exit code.
 
 The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
@@ -2215,6 +2220,146 @@ def phase_capabilities(label):
 
 
 # --------------------------------------------------------------------------
+# the quality and serving CLIs (scripts/learn_probe.py, convergence_check.py,
+# serve_check.py) at their own full widths
+# --------------------------------------------------------------------------
+
+QUALITY_CROP = (384, 1280)
+QUALITY_BATCH = 4
+PROBE_IMAGES = 16
+PROBE_STEPS = 25
+CONV_TRAIN = 16
+CONV_VAL = 8
+CONV_EPOCHS = 2
+SERVE_ITERS = 10
+
+
+def shift_dcn_layers(conf):
+    """The shift-DCN layers of `conf`'s model (a CPU build)."""
+    from m3dssd_tpu_torch.models import build
+    from m3dssd_tpu_torch.models.necks import DCN
+
+    model = build(conf.replace(compute_dtype="float32"), device="cpu")
+    return sum(isinstance(m, DCN) and m.uses_shift for m in model.modules())
+
+
+def phase_quality_scripts(label):
+    """The quality and serving CLIs' functions on the card: learn_probe
+    (DLA-34 at 384x1280 bs=4 bf16 over PROBE_IMAGES in-memory images,
+    variants run2 and plain, PROBE_STEPS steps each; every step's stats
+    finite, run2 through the forward and the three backward kernels,
+    plain through none), convergence_check in memory (CONV_TRAIN train and
+    CONV_VAL val images, CONV_EPOCHS epochs with an eval after each, the
+    train-split eval, the report through JSON; then one more step of its
+    trainer with every DCN call held against the plain version on its
+    operands) and serve_check --flagship (DLA-102 at 512x1760 bs=0: the
+    exported artifact within 1e-3 of live detect, both through the
+    forward kernel). Returns the kernels' launches."""
+    import tempfile
+
+    from m3dssd_tpu_torch.scripts import convergence_check as cc
+    from m3dssd_tpu_torch.scripts import learn_probe as lp
+    from m3dssd_tpu_torch.scripts import serve_check as sc
+
+    launches = dict.fromkeys(("forward",) + BWD_KERNELS, 0)
+    lines = []
+
+    def counted(fn):
+        reset_counts()
+        out, s = sync_s(fn)
+        n = bwd_counts()
+        for k in launches:
+            launches[k] += n[k]
+        return out, s, n
+
+    # learn_probe: run2 and plain over the same fixed batches
+    conf = lp.make_conf(QUALITY_BATCH, "dla34", QUALITY_CROP)
+    ds = cc.in_memory_train_set(lp.no_aug(conf), PROBE_IMAGES)
+    n_dcn = shift_dcn_layers(lp.variant_conf(ds.conf, "run2"))
+    check(n_dcn > 0, "learn_probe's run2 model has no shift-DCN layer")
+    probe = {}
+    for name in ("run2", "plain"):
+        res, s, n = counted(lambda: lp.run_learn_probe(
+            conf, dataset=ds, variants=(name,), steps=PROBE_STEPS,
+            images=PROBE_IMAGES, log_every=PROBE_STEPS // 2, device="cuda",
+            out=lines.append)[name])
+        check(res["nonfinite_steps"] == 0 and all(
+            math.isfinite(v) for v in res["stats"].values()),
+            f"learn_probe {name}: {res['nonfinite_steps']} steps with a "
+            f"non-finite stat; last {res['stats']}")
+        want = n_dcn * PROBE_STEPS if name == "run2" else 0
+        check(all(v == want for v in n.values()),
+              f"learn_probe {name} launched {n}, expected {want} of each")
+        probe[name] = (res, s, n)
+
+    # convergence_check in memory, then one more step under the spies
+    conf = cc.make_conf(epochs=CONV_EPOCHS, eval_epoch=1,
+                        batch_size=QUALITY_BATCH, crop=QUALITY_CROP)
+    train = cc.in_memory_train_set(conf, CONV_TRAIN)
+    val, train_eval = cc.in_memory_eval_sets(conf, CONV_TRAIN, CONV_VAL)
+    with tempfile.TemporaryDirectory() as tmp:
+        (report, tr), conv_s, n = counted(lambda: cc.run_convergence_check(
+            conf, None, os.path.join(tmp, "out"), device="cuda",
+            dataset=train, val_dataset=val, train_eval_dataset=train_eval,
+            log=lines.append))
+        steps = CONV_EPOCHS * (CONV_TRAIN // QUALITY_BATCH)
+        check(tr.state.step == steps and all(
+            n[k] == n_dcn * steps for k in BWD_KERNELS)
+            and n["forward"] > n_dcn * steps,
+            f"convergence_check: {tr.state.step} steps, launches {n}")
+        line = "CONVERGENCE_REPORT " + json.dumps(report, default=float)
+        rep = json.loads(line.split(" ", 1)[1])
+        traj = [t["val_car_3d_r40"] for t in rep["val_trajectory"]]
+        check(len(traj) == CONV_EPOCHS and all(map(math.isfinite, traj))
+              and math.isfinite(rep["train_car_3d_r40"])
+              and len(rep["train_car_bbox_r40"]) == 3,
+              f"convergence_check report {line}")
+        batch = next(tr.loader.batches(1))
+        _, dcn_calls = dcn_calls_vs_plain(
+            lambda: tr.train_step(tr.state, batch, tr.generator))
+        kinds = [k for k, _, _ in dcn_calls]
+        check(kinds.count("forward") == n_dcn
+              and kinds.count("backward") == n_dcn,
+              f"convergence step made DCN calls {kinds}")
+        del tr
+
+    # serve_check --flagship: the served and the live detector each make
+    # 1 compared, 2 warm and SERVE_ITERS timed calls, 8 forwards each
+    srv, serve_s, n = counted(lambda: sc.run_serve_check(
+        sc.make_conf(flagship=True), batch_size=0, iters=SERVE_ITERS,
+        device="cuda", log=lines.append))
+    check(srv["serve_check"] == "ok" and srv["max_abs_diff"] < sc.TOL,
+          f"serve_check --flagship: {srv}")
+    want = 8 * 2 * (3 + SERVE_ITERS)
+    check(n["forward"] == want and all(n[k] == 0 for k in BWD_KERNELS),
+          f"serve_check launched {n}, expected {want} forwards")
+
+    log(f"quality scripts ({label}): learn_probe dla34 {QUALITY_CROP[0]}x"
+        f"{QUALITY_CROP[1]} bs={QUALITY_BATCH} over {PROBE_IMAGES} "
+        f"in-memory images, {PROBE_STEPS} steps per variant, {n_dcn} "
+        "shift-DCN layers")
+    for s in lines:
+        if s.startswith(("RESULT", "[trajectory]", "[serve_check]")):
+            log(f"  {s}")
+    for name, (res, s, n) in probe.items():
+        log(f"  learn_probe {name}: {s:.1f} s, {res['steps_per_s']:.2f} "
+            f"steps/s, launches {n}")
+    log(f"  convergence_check {CONV_TRAIN} train / {CONV_VAL} val, "
+        f"{CONV_EPOCHS} epochs bs={QUALITY_BATCH}: {conv_s:.1f} s; {line}")
+    log("  one more convergence step's shift-DCN calls vs plain on their "
+        "operands, bf16 (forward max|diff|/max(1,scale); backward relative "
+        "max|diff| of dx doffset dmask dweight): " + "; ".join(
+            f"{k} {','.join(map(str, sh[:4]))}->{sh[4]} "
+            + " ".join(f"{e:.1e}" for e in errs)
+            for k, sh, errs in dcn_calls))
+    log(f"  serve_check --flagship dla102 512x1760 bs=1: {serve_s:.1f} s "
+        f"with the export; served {srv['latency_ms']:.3f} ms/call, eager "
+        f"{srv['eager_ms']:.3f} ms/call, max|served - live| "
+        f"{srv['max_abs_diff']:.3e}, artifact {srv['artifact_mb']:.1f} MB")
+    return launches
+
+
+# --------------------------------------------------------------------------
 # data parallelism (parallel/): ranks in their own processes
 # --------------------------------------------------------------------------
 
@@ -3114,13 +3259,15 @@ def main() -> int:
     life_launches = timed(phase_run_lifecycle, label)
     timed(phase_upstream, label)
     cap_launches = timed(phase_capabilities, label)
+    quality_launches = timed(phase_quality_scripts, label)
     bwd = {k: {} for k in BWD_KERNELS}
     for name, n in (("train", train_launches), ("data_parallel",
                                                 dp_launches),
                     ("mesh_axes", mesh_launches),
                     ("device_targets", dt_launches),
                     ("lifecycle", life_launches),
-                    ("capabilities", cap_launches)):
+                    ("capabilities", cap_launches),
+                    ("quality_scripts", quality_launches)):
         fwd[name] = n["forward"]
         for k in BWD_KERNELS:
             bwd[k][name] = n[k]
