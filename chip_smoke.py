@@ -327,7 +327,6 @@ def phase_detect(label):
     from m3dssd_tpu_torch.config import flagship_conf
     from m3dssd_tpu_torch.inference.detect import make_batch_detector
     from m3dssd_tpu_torch.models import bias_background, build
-    from m3dssd_tpu_torch.ops import dcn_cuda
 
     launches = 0
     for crop, B, bg, iters in DETECT_RUNS:
@@ -342,9 +341,9 @@ def phase_detect(label):
         sfs = torch.ones(B, device="cuda")
         setup_s = time.perf_counter() - t0
 
-        dcn_cuda.launches = 0
+        reset_counts()
         dets = detect(images, sfs).cpu()
-        n = dcn_cuda.launches
+        n = bwd_counts()["forward"]
         check(n == 8, f"{crop} bs={B}: shift-DCN kernel launched {n} "
               "times in one forward, expected 8")
         launches += n
@@ -594,7 +593,6 @@ def phase_eval(label, device="cuda"):
     from m3dssd_tpu_torch.inference.detect import (_compact_positions,
                                                    _sparse_nms_cfg,
                                                    make_batch_detector)
-    from m3dssd_tpu_torch.ops import dcn_cuda
 
     B, n = EVAL_BATCH, EVAL_IMAGES
     t0 = time.perf_counter()
@@ -606,12 +604,12 @@ def phase_eval(label, device="cuda"):
     with tempfile.TemporaryDirectory() as tmp:
         gt = data.write_labels(os.path.join(tmp, "gt"))
         results = os.path.join(tmp, "results")
-        dcn_cuda.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         res, sel = drv.test_kitti_3d(data, detect, conf, results, gt_path=gt,
                                      batch_size=B, packed_input=True)
         entry_s = time.perf_counter() - t0
-        launches = dcn_cuda.launches
+        launches = bwd_counts()["forward"]
         nb = -(-n // B)
         check(launches == 8 * nb, f"eval: shift-DCN kernel launched "
               f"{launches} times in {nb} batches, expected 8 per batch")
@@ -1027,17 +1025,19 @@ def train_set(conf):
 
 
 def bwd_counts():
-    from m3dssd_tpu_torch.ops import dcn_cuda
+    """The shift-DCN kernels' launches since `reset_counts`:
+    {forward, cols, data, coord} (`utils/profiling.py:counts`)."""
+    from m3dssd_tpu_torch.utils.profiling import counts
 
-    return {"forward": dcn_cuda.launches, **dcn_cuda.bwd_launches}
+    return {"forward": counts["dcn_shift.fwd"],
+            **{k: counts["dcn_shift.bwd." + k] for k in BWD_KERNELS}}
 
 
 def reset_counts():
-    from m3dssd_tpu_torch.ops import dcn_cuda
+    from m3dssd_tpu_torch.utils.profiling import counts
 
-    dcn_cuda.launches = 0
-    for k in dcn_cuda.bwd_launches:
-        dcn_cuda.bwd_launches[k] = 0
+    for k in ("fwd",) + tuple("bwd." + k for k in BWD_KERNELS):
+        counts["dcn_shift." + k] = 0
 
 
 def sync_s(fn):
@@ -1366,12 +1366,12 @@ from m3dssd_tpu_torch.ops import _build, dcn_cuda
 conf = mod.load_conf({run!r})
 val = SyntheticEvalSet(conf, {n}, seed=8, imW={imw}, imH={imh})
 gt = val.write_labels(os.path.join({run!r}, "gt_test"))
-dcn_cuda.launches = 0
+from m3dssd_tpu_torch.utils.profiling import counts
 res, sel = mod.run_test({run!r}, dataset=val, gt_path=gt)
 print(json.dumps({{"source": mod.package_dir(), "dcn_cuda": dcn_cuda.__file__,
                   "libs": sorted(os.listdir(_build.BUILD_DIR)),
                   "build_dir": _build.BUILD_DIR,
-                  "launches": dcn_cuda.launches,
+                  "launches": counts["dcn_shift.fwd"],
                   "car_3d_r40": res.get("Car_3d_R40"), "sel": sel}}))
 """
 
@@ -1397,7 +1397,6 @@ def phase_run_lifecycle(label):
                                                    save_exported)
     from m3dssd_tpu_torch.models import bias_background, build, rpn
     from m3dssd_tpu_torch.models.layers import BatchNorm2d
-    from m3dssd_tpu_torch.ops import dcn_cuda
     from m3dssd_tpu_torch.scripts import export_model as export_cli
     from m3dssd_tpu_torch.scripts import train as train_cli
     from m3dssd_tpu_torch.train.state import create_train_state
@@ -1575,12 +1574,12 @@ def phase_run_lifecycle(label):
         finally:
             rpn.confident_topm = topm
         cli_regime = "sparse" if sels[-1].ok else "dense"
-        dcn_cuda.launches = 0
+        reset_counts()
         got = det(images, sfs)
         torch.cuda.synchronize()
-        check(dcn_cuda.launches == 8, f"artifact: {dcn_cuda.launches} "
-              "kernel launches in one call")
-        launches["forward"] += dcn_cuda.launches
+        n_art = bwd_counts()["forward"]
+        check(n_art == 8, f"artifact: {n_art} kernel launches in one call")
+        launches["forward"] += n_art
         nvalid = int((want[..., 4] > 0).sum())
         check(tuple(got.shape) == (B, conf.nms_topN_post, 14)
               and bool(torch.isfinite(got).all()) and nvalid > 0
@@ -1620,10 +1619,10 @@ def phase_run_lifecycle(label):
         path = os.path.join(tmp, f"{regime}.pt2")
         save_exported(ep, path, conf=conf, batch_size=B, packed_input=True)
         det = load_detector(path)
-        dcn_cuda.launches = 0
+        reset_counts()
         got = det(images, sfs)
         torch.cuda.synchronize()
-        n_art = dcn_cuda.launches
+        n_art = bwd_counts()["forward"]
         launches["forward"] += n_art
         sels = []
         rpn.confident_topm = lambda *a: sels.append(topm(*a)) or sels[-1]
@@ -1662,7 +1661,6 @@ def phase_upstream(label):
     from m3dssd_tpu_torch.inference.detect import make_batch_detector
     from m3dssd_tpu_torch.models import build
     from m3dssd_tpu_torch.models.necks import DCN
-    from m3dssd_tpu_torch.ops import dcn_cuda
     from m3dssd_tpu_torch.utils.torch_import import (
         load_reference_checkpoint, pin_parity_conf)
     sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -1689,12 +1687,13 @@ def phase_upstream(label):
     rois = locate_anchors(conf.anchors, conf.feat_size, conf.feat_stride)
     B = TRAIN_BATCH
     images = packed_images(B, *TRAIN_CROP, seed=2, device="cuda")
-    dcn_cuda.launches = 0
+    reset_counts()
     dets = make_batch_detector(pinned, rois, m2, packed_input=True)(
         images, torch.ones(B, device="cuda"))
-    check(dcn_cuda.launches == 0 and bool(torch.isfinite(dets).all())
+    n_pinned = bwd_counts()["forward"]
+    check(n_pinned == 0 and bool(torch.isfinite(dets).all())
           and tuple(dets.shape) == (B, conf.nms_topN_post, 14),
-          f"pinned detect: {dcn_cuda.launches} launches")
+          f"pinned detect: {n_pinned} launches")
     log(f"upstream checkpoint 384x1280 ({label}): {len(sd)} tensors in the "
         f"original layout imported back bit-equal; dcn_shift_clamp pinned to "
         f"None; detect bs={B} on the gather DCN: dets finite, 0 shift-DCN "

@@ -17,6 +17,11 @@ suppresses a higher-scoring one). When any image of the batch has more
 confident positions than the budget, the whole batch takes the dense path
 (`ops/control.py:cond`: eager it reads one flag per batch back, under
 torch.export both paths are in the graph).
+
+Each call runs in the profiler span `m3dssd.detect`, the decoder in
+`m3dssd.decode_nms`, and inside it `m3dssd.compact`, `m3dssd.decode`,
+`m3dssd.nms` (one `m3dssd.nms.round` a round) and `m3dssd.table`
+(`utils/profiling.py`).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from ..ops.compact import first_m_true
 from ..ops.control import cond
 from ..ops.nms import nms_bitmask_select_t, nms_select_t
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 
 # detection table columns
 DET_COLS = ["x1", "y1", "x2", "y2", "score", "cls",
@@ -144,28 +150,34 @@ class _Decoder(torch.nn.Module):
         [B, top_post, 14]. `bitmask` resolves NMS by the fixpoint of
         nms_bitmask_select_t (for a compacted candidate set)."""
         sf = sfs[:, None, None]
-        coords_2d = bbox_transform_inv_t(rk, d2, self.means[0:4],
-                                         self.stds[0:4]) / sf
-        coords_3d = decode_bbox_3d_t(rk, d3, sk, self.means, self.stds)
-        coords_3d = torch.cat([coords_3d[:, 0:2] / sf, coords_3d[:, 2:]], 1)
-        if bitmask:
-            fi, valid = nms_bitmask_select_t(coords_2d, scores,
-                                             self.nms_thres, self.top_post)
-        else:
-            fi, valid = nms_select_t(coords_2d, scores, self.nms_thres,
-                                     self.top_post, stop_below=self.nms_stop)
-        B, K = fi.shape
-        final_scores = torch.where(valid, scores.gather(1, fi), -1.0)
-        final_2d = coords_2d.gather(2, fi[:, None, :].expand(B, 4, K))
-        if self.clip_boxes:
-            final_2d = _clip_dets_2d(final_2d, sfs, self.test_scale)
-        final_3d = coords_3d.gather(2, fi[:, None, :].expand(B, 7, K))
-        return torch.cat([
-            final_2d.transpose(1, 2),
-            final_scores[..., None],
-            cls_pred.to(torch.float32).gather(1, fi)[..., None],
-            final_3d.transpose(1, 2),
-            rk[4].expand(B, -1).gather(1, fi)[..., None]], dim=-1)
+        with span("m3dssd.decode"):
+            coords_2d = bbox_transform_inv_t(rk, d2, self.means[0:4],
+                                             self.stds[0:4]) / sf
+            coords_3d = decode_bbox_3d_t(rk, d3, sk, self.means, self.stds)
+            coords_3d = torch.cat([coords_3d[:, 0:2] / sf, coords_3d[:, 2:]],
+                                  1)
+        with span("m3dssd.nms"):
+            if bitmask:
+                fi, valid = nms_bitmask_select_t(coords_2d, scores,
+                                                 self.nms_thres,
+                                                 self.top_post)
+            else:
+                fi, valid = nms_select_t(coords_2d, scores, self.nms_thres,
+                                         self.top_post,
+                                         stop_below=self.nms_stop)
+        with span("m3dssd.table"):
+            B, K = fi.shape
+            final_scores = torch.where(valid, scores.gather(1, fi), -1.0)
+            final_2d = coords_2d.gather(2, fi[:, None, :].expand(B, 4, K))
+            if self.clip_boxes:
+                final_2d = _clip_dets_2d(final_2d, sfs, self.test_scale)
+            final_3d = coords_3d.gather(2, fi[:, None, :].expand(B, 7, K))
+            return torch.cat([
+                final_2d.transpose(1, 2),
+                final_scores[..., None],
+                cls_pred.to(torch.float32).gather(1, fi)[..., None],
+                final_3d.transpose(1, 2),
+                rk[4].expand(B, -1).gather(1, fi)[..., None]], dim=-1)
 
     def finish_sparse(self, idx, scores, cls_pred, d2, d3, sfs):
         """The sparse pre-NMS path over the candidate anchors `idx` [B, M]
@@ -188,14 +200,19 @@ class _Decoder(torch.nn.Module):
         def consts(a):                         # [P, N] -> [P, B, M]
             return torch.where(hit, a[:, safe], 0.0)
 
-        sc = rows(scores.to(torch.float32), -1.0)
-        ck = rows(cls_pred.to(torch.float32), 0.0)
-        return self.finish(sc, ck, consts(self.rois_t), consts(self.src3d_t),
-                           chans(d2), chans(d3), sfs,
-                           bitmask=self.use_bitmask)
+        with span("m3dssd.compact"):
+            sc = rows(scores.to(torch.float32), -1.0)
+            ck = rows(cls_pred.to(torch.float32), 0.0)
+            cand = (consts(self.rois_t), consts(self.src3d_t), chans(d2),
+                    chans(d3))
+        return self.finish(sc, ck, *cand, sfs, bitmask=self.use_bitmask)
 
     def forward(self, out, sfs):
         """Decode + NMS of the model outputs `out` of a batch."""
+        with span("m3dssd.decode_nms"):
+            return self._decode_nms(out, sfs)
+
+    def _decode_nms(self, out, sfs):
         scores, cls_pred = out["scores"], out["cls_pred"]
         d2, d3 = out["bbox_2d"], out["bbox_3d"]
 
@@ -205,11 +222,12 @@ class _Decoder(torch.nn.Module):
 
         if not self.sparse_mpos:
             return dense(scores, cls_pred, d2, d3, sfs)
-        idx, oks = _compact_positions(scores, self.A, self.sparse_thresh,
-                                      self.sparse_mpos)
+        with span("m3dssd.compact"):
+            idx, oks = _compact_positions(scores, self.A, self.sparse_thresh,
+                                          self.sparse_mpos)
         return cond(oks.all(),
                     lambda *a: self.finish_sparse(idx, *a), dense,
-                    (scores, cls_pred, d2, d3, sfs))
+                    (scores, cls_pred, d2, d3, sfs), site="decode.sparse")
 
 
 def make_batch_detector(conf, rois: np.ndarray, model, packed_input: bool = False,
@@ -231,10 +249,12 @@ def make_batch_detector(conf, rois: np.ndarray, model, packed_input: bool = Fals
 
     @torch.inference_mode()
     def detect(images, scale_factors):
-        out = model(torch.as_tensor(images, device=dev), packed=packed_input)
-        sfs = torch.as_tensor(scale_factors, dtype=torch.float32,
-                              device=dev).reshape(-1)
-        return dec(out, sfs)
+        with span("m3dssd.detect"):
+            out = model(torch.as_tensor(images, device=dev),
+                        packed=packed_input)
+            sfs = torch.as_tensor(scale_factors, dtype=torch.float32,
+                                  device=dev).reshape(-1)
+            return dec(out, sfs)
 
     detect.device = dev
     return detect
@@ -256,6 +276,10 @@ def make_detector(conf, rois: np.ndarray, model, use_topk_pre: bool = False,
 
     @torch.inference_mode()
     def detect(image, scale_factor):
+        with span("m3dssd.detect"):
+            return _detect(image, scale_factor)
+
+    def _detect(image, scale_factor):
         out = model(torch.as_tensor(image, device=dev), packed=packed_input)
         sfs = torch.as_tensor(scale_factor, dtype=torch.float32,
                               device=dev).reshape(1)
@@ -263,11 +287,13 @@ def make_detector(conf, rois: np.ndarray, model, use_topk_pre: bool = False,
                                        "bbox_3d")}
         if not use_topk_pre:
             return dec(out, sfs)[0]
-        scores, idx = torch.topk(out["scores"], top_pre, dim=1)
-        cls_pred = out["cls_pred"].gather(1, idx)
-        d2, d3 = out["bbox_2d"][:, :, idx[0]], out["bbox_3d"][:, :, idx[0]]
-        rk, sk = dec.rois_t[:, idx[0]], dec.src3d_t[:, idx[0]]
-        return dec.finish(scores, cls_pred, rk, sk, d2, d3, sfs)[0]
+        with span("m3dssd.decode_nms"):
+            scores, idx = torch.topk(out["scores"], top_pre, dim=1)
+            cls_pred = out["cls_pred"].gather(1, idx)
+            d2 = out["bbox_2d"][:, :, idx[0]]
+            d3 = out["bbox_3d"][:, :, idx[0]]
+            rk, sk = dec.rois_t[:, idx[0]], dec.src3d_t[:, idx[0]]
+            return dec.finish(scores, cls_pred, rk, sk, d2, d3, sfs)[0]
 
     detect.device = dev
     return detect

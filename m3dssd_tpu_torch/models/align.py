@@ -15,8 +15,11 @@ collapses to `mask * conv(x) + bias`. With a `SparseSel` the modules compute
 that dense base everywhere and correct it by the deformable gather at the
 (up to M) confident positions; when more than M positions are confident
 they run the full dense DCN instead. Exact in both regimes. The choice is
-`ops/control.py:cond`: eager it reads the overflow flag back once per
-forward, under torch.export it is a `torch.cond` over both paths.
+`ops/control.py:cond`: eager each module reads the overflow flag back
+(counted as `sync.<site>`, and the dense side as `fallback.<site>`), under
+torch.export it is a `torch.cond` over both paths. The selection runs in
+the profiler span `m3dssd.align.select`, each module in
+`m3dssd.<site>`.
 
 Layouts: features x are NCHW (channels_last); the per-anchor confidence and
 regressions are [B, H, W, A]. The DCN mask is the soft max confidence.
@@ -38,6 +41,7 @@ from ..ops.compact import first_m_true
 from ..ops.control import cond
 from ..ops.dcn import bilinear_sample_rows, dcn_v2
 from ..parallel import model_axis
+from ..utils.profiling import span
 
 
 class SparseSel(NamedTuple):
@@ -53,9 +57,10 @@ def confident_topm(prob, thresh: float, m_per_image: int) -> SparseSel:
     """Select (up to) the first M = m_per_image*B confident positions, in
     order of appearance. prob [B,H,W,A] (no gradient flows through it)."""
     B, H, W, A = prob.shape
-    mask, ind = torch.max(prob.detach(), dim=-1, keepdim=True)
-    M = int(min(m_per_image * B, B * H * W))
-    pos, ok = first_m_true((mask[..., 0] > thresh).reshape(-1), M)
+    with span("m3dssd.align.select"):
+        mask, ind = torch.max(prob.detach(), dim=-1, keepdim=True)
+        M = int(min(m_per_image * B, B * H * W))
+        pos, ok = first_m_true((mask[..., 0] > thresh).reshape(-1), M)
     return SparseSel(pos, ok, mask, ind[..., 0])
 
 
@@ -125,8 +130,13 @@ class ShapeAlign(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     model_shard = None
+    site = "align.shape"
 
     def forward(self, x, prob, sparse_sel: Optional[SparseSel] = None):
+        with span("m3dssd." + self.site):
+            return self._forward(x, prob, sparse_sel)
+
+    def _forward(self, x, prob, sparse_sel: Optional[SparseSel]):
         xin = _enter(x, self.model_shard)
         if sparse_sel is None:
             return _out(self._dense(xin, _anchor_max(prob)),
@@ -135,7 +145,7 @@ class ShapeAlign(nn.Module):
         aligned = cond(sel.ok,
                        lambda x: self._sparse_correct(self._base(x, sel), x,
                                                       sel),
-                       lambda x: self._dense(x, sel), (xin,))
+                       lambda x: self._dense(x, sel), (xin,), site=self.site)
         return _out(aligned, self.model_shard) + x
 
     def _dense(self, x, sel: SparseSel):
@@ -191,8 +201,10 @@ class CenterAlign(nn.Module):
     """Regression-driven 1x1 deformable alignment."""
 
     def __init__(self, features: int, anchors: np.ndarray, xy_mean, xy_std,
-                 feat_stride: int, thresh: float = 0.5):
+                 feat_stride: int, thresh: float = 0.5,
+                 site: str = "align.center2d"):
         super().__init__()
+        self.site = site
         anchors = np.asarray(anchors)
         self.register_buffer("anchor_w", torch.as_tensor(
             (anchors[:, 2] - anchors[:, 0]) / feat_stride, dtype=torch.float32),
@@ -214,6 +226,11 @@ class CenterAlign(nn.Module):
                 sparse_sel: Optional[SparseSel] = None):
         """bbox_x / bbox_y: per-anchor whitened delta predictions
         [B,H,W,A]."""
+        with span("m3dssd." + self.site):
+            return self._forward(x, bbox_x, bbox_y, prob, sparse_sel)
+
+    def _forward(self, x, bbox_x, bbox_y, prob,
+                 sparse_sel: Optional[SparseSel]):
         xin = _enter(x, self.model_shard)
         if sparse_sel is None:
             return _out(self._dense(xin, bbox_x, bbox_y, prob),
@@ -223,7 +240,7 @@ class CenterAlign(nn.Module):
                        lambda x, bx, by: self._sparse_correct(
                            self._base(x, sel), x, bx, by, sel),
                        lambda x, bx, by: self._dense(x, bx, by, prob),
-                       (xin, bbox_x, bbox_y))
+                       (xin, bbox_x, bbox_y), site=self.site)
         return _out(aligned, self.model_shard) + x
 
     def _offsets(self, bx, by, ind):

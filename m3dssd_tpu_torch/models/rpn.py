@@ -23,6 +23,7 @@ import torch
 import torch.nn as nn
 
 from ..utils.device import resolve_device
+from ..utils.profiling import span
 from .align import CenterAlign, ShapeAlign, confident_topm
 from .attention import ANAB
 from .layers import BatchNorm2d, BilinearUpsample, batch_norm, \
@@ -99,7 +100,7 @@ class M3DRPN(nn.Module):
                 align_thresh)
             self.center_align3d = CenterAlign(
                 ch, anchors, bbox_means[4:6], bbox_stds[4:6], feat_stride,
-                align_thresh)
+                align_thresh, site="align.center3d")
         else:
             self.center_align2d = self.center_align3d = None
         if attention == "ANAB":
@@ -108,8 +109,16 @@ class M3DRPN(nn.Module):
 
     def forward(self, images, packed: bool = False) -> Dict[str, torch.Tensor]:
         """images [B, H, W, 3] (NHWC), or with `packed` their space-to-depth
-        packing [B, H/2, W/2, 12]."""
-        x, on_slabs = self.base.forward_rows(images, packed=packed)
+        packing [B, H/2, W/2, 12]. Runs in the profiler spans
+        `m3dssd.backbone` (DLASeg) and `m3dssd.head` (the rest)."""
+        with span("m3dssd.backbone"):
+            x, on_slabs = self.base.forward_rows(images, packed=packed)
+        with span("m3dssd.head"):
+            return self._head(x, on_slabs)
+
+    def _head(self, x, on_slabs: bool) -> Dict[str, torch.Tensor]:
+        """Towers, softmax, selection, alignment, ANAB and the outputs of
+        the stride-8 feature map x [B, C, H, W]."""
         B, _, H, W = x.shape
         A, NC = self.num_anchors, self.num_classes
 
@@ -166,7 +175,8 @@ class M3DRPN(nn.Module):
 
         feats_z = feats3d
         if self.attention == "ANAB":
-            feats_z = leaky_relu(self.anab_bn(self.anab(feats_z)))
+            with span("m3dssd.anab"):
+                feats_z = leaky_relu(self.anab_bn(self.anab(feats_z)))
         bbox_z3d = self.bbox_z3d(feats_z)
 
         flat = lambda v: flatten_anchor_map(v).to(torch.float32)

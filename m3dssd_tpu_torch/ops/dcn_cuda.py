@@ -11,15 +11,17 @@ package's transpose `m3dssd_tpu/ops/dcn.py:_dcn_shift_core_bwd`; their
 plain version is `ops/dcn.py:dcn_v2_shift_backward_reference`.
 `dcn_v2_shift_backward_cuda` runs the two matrix products on cuBLAS and the
 column build, the input gradient and the offset/mask gradients as the
-three kernels, each with its own wrapper and launch count in
-`bwd_launches`. All three run on the launch plan of `bwd_plan` (pixel
+three kernels, each with its own wrapper and launch count
+(`dcn_shift.bwd.cols`, `.data`, `.coord` in `utils/profiling.py:counts`).
+All three run on the launch plan of `bwd_plan` (pixel
 tiles over rows staged in shared memory).
 
 The dtype selects the kernel: bfloat16 runs the tensor-core (wgmma) kernel
-with the launch plan of `plan`, float32 the CUDA-core kernel. `launches`
-counts calls of the op that launched a kernel (one per call, whether the
-call launches one kernel or, with a split reduction, two); a run resets it
-to 0 and reads it back to show that its path went through the kernels.
+with the launch plan of `plan`, float32 the CUDA-core kernel. The count
+`dcn_shift.fwd` counts calls of the op that launched a kernel (one per
+call, whether the call launches one kernel or, with a split reduction,
+two); a run reads it before and after to show that its path went through
+the kernels.
 """
 
 from __future__ import annotations
@@ -30,11 +32,9 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from ..utils.profiling import count
 from .dcn import shift_geometry
 
-launches = 0
-# launches of each backward kernel (one per wrapper call)
-bwd_launches = {"cols": 0, "data": 0, "coord": 0}
 _lib = None
 _bwd_lib = None
 
@@ -243,7 +243,6 @@ def dcn_v2_shift_cuda(x, offset, mask, weight, bias=None, *,
     Every operand must be contiguous, on one CUDA device and not require
     grad; anything else raises before the kernel is built or launched.
     """
-    global launches
     if not isinstance(x, torch.Tensor) or x.dim() != 4:
         raise ValueError("x must be a 4-D tensor [B,H,W,C]")
     if not isinstance(weight, torch.Tensor) or weight.dim() != 4:
@@ -299,7 +298,7 @@ def dcn_v2_shift_cuda(x, offset, mask, weight, bias=None, *,
     if rc != 0:
         msg = lib.dcn_shift_error_string(rc).decode()
         raise RuntimeError(f"dcn_shift_forward failed: {msg} ({rc})")
-    launches += 1
+    count("dcn_shift.fwd")
     return out
 
 
@@ -366,7 +365,7 @@ def dcn_shift_bwd_cols_cuda(x, offset, mask, *, K: int = 3,
              mask.data_ptr(), col.data_ptr(), _DTYPE_CODE[x.dtype], B, H, W,
              C2, K, float(clamp), R, *p.tiles, p.split, p.chunks_per_split,
              p.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
-    bwd_launches["cols"] += 1
+    count("dcn_shift.bwd.cols")
     if C2 != C:
         col = col.view(B * H * W, KK, C2)[..., :C].reshape(B * H * W, KK * C)
     return col
@@ -397,7 +396,7 @@ def dcn_shift_bwd_data_cuda(gk, offset, mask, x_shape, *, K: int = 3,
              mask.data_ptr(), dx.data_ptr(), _DTYPE_CODE[gk.dtype], B, H, W,
              C2, K, float(clamp), R, *p.tiles, p.split, p.chunks_per_split,
              p.smem_bytes, torch.cuda.current_stream(dev).cuda_stream)
-    bwd_launches["data"] += 1
+    count("dcn_shift.bwd.data")
     if C2 != C:
         dx = dx[..., :C].contiguous()
     return dx
@@ -439,7 +438,7 @@ def dcn_shift_bwd_coord_cuda(x, gk, offset, mask, *, K: int = 3,
              _DTYPE_CODE[x.dtype], B, H, W, C, K, float(clamp), R, *p.tiles,
              p.split, p.chunks_per_split, p.smem_bytes,
              torch.cuda.current_stream(dev).cuda_stream)
-    bwd_launches["coord"] += 1
+    count("dcn_shift.bwd.coord")
     return doffset, dmask
 
 

@@ -12,6 +12,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.profiling import host_sync, span
 from .compact import first_m_true
 from .control import fixpoint
 
@@ -48,27 +49,29 @@ def nms_select_t(boxes_t, scores, iou_thresh: float, num_out: int,
     arange_n = torch.arange(N, device=dev)
     idxs = torch.zeros((B, num_out), dtype=torch.int64, device=dev)
     valid = torch.zeros((B, num_out), dtype=torch.bool, device=dev)
-    neg_inf = torch.tensor(float("-inf"), device=dev)
+    with host_sync("nms.neg_inf"):    # a scalar copied from pageable memory
+        neg_inf = torch.tensor(float("-inf"), device=dev)
 
     for k in range(num_out):
-        i = torch.argmax(active, dim=1, keepdim=True)          # [B,1]
-        cur = active.gather(1, i)                              # [B,1]
-        if stop_below is None:
-            ok = cur > float("-inf")
-            idxs[:, k] = i[:, 0]
-        else:
-            ok = cur >= float(stop_below)
-            idxs[:, k] = torch.where(ok[:, 0], i[:, 0], 0)
-        valid[:, k] = ok[:, 0]
-        xx1 = torch.maximum(x1.gather(1, i), x1)
-        yy1 = torch.maximum(y1.gather(1, i), y1)
-        xx2 = torch.minimum(x2.gather(1, i), x2)
-        yy2 = torch.minimum(y2.gather(1, i), y2)
-        inter = (torch.clamp(xx2 - xx1 + 1.0, min=0.0)
-                 * torch.clamp(yy2 - yy1 + 1.0, min=0.0))
-        iou = inter / (area.gather(1, i) + area - inter)
-        suppress = (iou > iou_thresh) | (arange_n[None, :] == i)
-        active = torch.where(ok & suppress, neg_inf, active)
+        with span("m3dssd.nms.round"):
+            i = torch.argmax(active, dim=1, keepdim=True)          # [B,1]
+            cur = active.gather(1, i)                              # [B,1]
+            if stop_below is None:
+                ok = cur > float("-inf")
+                idxs[:, k] = i[:, 0]
+            else:
+                ok = cur >= float(stop_below)
+                idxs[:, k] = torch.where(ok[:, 0], i[:, 0], 0)
+            valid[:, k] = ok[:, 0]
+            xx1 = torch.maximum(x1.gather(1, i), x1)
+            yy1 = torch.maximum(y1.gather(1, i), y1)
+            xx2 = torch.minimum(x2.gather(1, i), x2)
+            yy2 = torch.minimum(y2.gather(1, i), y2)
+            inter = (torch.clamp(xx2 - xx1 + 1.0, min=0.0)
+                     * torch.clamp(yy2 - yy1 + 1.0, min=0.0))
+            iou = inter / (area.gather(1, i) + area - inter)
+            suppress = (iou > iou_thresh) | (arange_n[None, :] == i)
+            active = torch.where(ok & suppress, neg_inf, active)
 
     if single:
         return idxs[0], valid[0]
@@ -119,11 +122,12 @@ def nms_bitmask_select_t(boxes_t, scores, iou_thresh: float, num_out: int):
 
     def step(keep):
         # suppressed[i] = any kept j with over[j, i]; 0/1 sums are exact
-        suppressed = torch.bmm(keep.to(torch.float32)[:, None, :],
-                               over)[:, 0] > 0.0
-        return active & ~suppressed
+        with span("m3dssd.nms.round"):
+            suppressed = torch.bmm(keep.to(torch.float32)[:, None, :],
+                                   over)[:, 0] > 0.0
+            return active & ~suppressed
 
-    keep = fixpoint(step, active, C)
+    keep = fixpoint(step, active, C, site="nms.fixpoint")
 
     pos, _ = first_m_true(keep, num_out)             # sentinel C when unused
     valid = pos < C

@@ -46,11 +46,11 @@ def main():
     from m3dssd_tpu_torch.data.loader import TrainLoader
     from m3dssd_tpu_torch.data.synthetic import SyntheticTrainSet
     from m3dssd_tpu_torch.models import build
-    from m3dssd_tpu_torch.ops import dcn_cuda
     from m3dssd_tpu_torch.parallel import (all_reduce_grads,
                                            init_distributed, make_mesh)
     from m3dssd_tpu_torch.train.state import (create_train_state,
                                               make_train_step)
+    from m3dssd_tpu_torch.utils.profiling import counts
 
     device = "cpu" if args.cpu else None
     init_distributed(device=device)
@@ -85,9 +85,9 @@ def main():
     sync()
     if mesh.device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(mesh.device)
-    dcn_cuda.launches = 0
-    for k in dcn_cuda.bwd_launches:
-        dcn_cuda.bwd_launches[k] = 0
+    bwd = ("cols", "data", "coord")
+    for k in ("fwd",) + tuple("bwd." + k for k in bwd):
+        counts["dcn_shift." + k] = 0
     times = []
     for i in range(args.steps):
         sync()
@@ -105,8 +105,8 @@ def main():
         sync()
         reduce_s.append(time.perf_counter() - t0)
     mine = {"rank": mesh.rank,
-            "launches": {"forward": dcn_cuda.launches,
-                         **dcn_cuda.bwd_launches},
+            "launches": {"forward": counts["dcn_shift.fwd"],
+                         **{k: counts["dcn_shift.bwd." + k] for k in bwd}},
             "peak_gib": (torch.cuda.max_memory_allocated(mesh.device)
                          / 2 ** 30 if mesh.device.type == "cuda" else None)}
     ranks = [None] * mesh.size

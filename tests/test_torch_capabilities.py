@@ -18,6 +18,7 @@ in levels 2-5 (strides 4-32), so the input height must be a multiple of
 """
 
 import copy
+import json
 import logging
 import os
 import sys
@@ -646,13 +647,25 @@ def test_make_tb_writer_is_none_without_tensorboard(tmp_path, monkeypatch,
 
 
 def test_phase_timer_and_device_trace(tmp_path):
-    timer = profiling.PhaseTimer()
-    for _ in range(2):
-        with timer.phase("a"):
-            pass
-    assert timer.counts["a"] == 2 and "a=" in timer.report()
+    """`device_trace` holds the program's own spans (the phase timer's
+    host clock gave way to them): greedy NMS's sync and its rounds, in
+    `key_averages()` and in the Chrome trace it writes."""
+    from m3dssd_tpu_torch.ops.nms import nms_select_t
+
+    boxes = torch.tensor([[0.0, 0.0, 9.0, 9.0], [1.0, 1.0, 10.0, 10.0],
+                          [20.0, 20.0, 29.0, 29.0]]).T
+    scores = torch.tensor([0.9, 0.8, 0.7])
     with profiling.device_trace(str(tmp_path / "trace")) as prof:
-        torch.ones(8).sum()
-    assert prof.key_averages()
+        idx, valid = nms_select_t(boxes, scores, 0.4, 3)
+    assert idx.tolist()[:2] == [0, 2] and valid.tolist() == [True, True,
+                                                              False]
+    counted = {e.key: e.count for e in prof.key_averages()}
+    assert counted["m3dssd.nms.round"] == 3
+    assert counted["m3dssd.sync.nms.neg_inf"] == 1
     files = os.listdir(tmp_path / "trace")
     assert len(files) == 1 and files[0].endswith(".json")
+    with open(tmp_path / "trace" / files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    rounds = [e for e in events if e.get("name") == "m3dssd.nms.round"]
+    assert len(rounds) == 3 and all(e["cat"] == "user_annotation"
+                                    for e in rounds)

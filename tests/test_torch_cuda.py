@@ -17,11 +17,19 @@ from m3dssd_tpu_torch.models import build
 from m3dssd_tpu_torch.models.necks import DCN
 from m3dssd_tpu_torch.ops import dcn as tdcn
 from m3dssd_tpu_torch.ops import dcn_cuda
+from m3dssd_tpu_torch.utils.profiling import counts
 
 # one torch thread per test process: the suite runs several workers at
 # once, and torch's default of one thread per core made them
 # oversubscribe the machine and slow every worker down
 torch.set_num_threads(1)
+
+
+def bwd_launches():
+    """The backward kernels' launch counts, by their names in `counts`."""
+    return {k: counts[k] for k in ("dcn_shift.bwd.cols",
+                                   "dcn_shift.bwd.data",
+                                   "dcn_shift.bwd.coord")}
 
 
 @pytest.fixture
@@ -60,17 +68,17 @@ def test_dcn_shift_kernel_matches_plain(cuda_device, dtype, shape, clamp):
     C = 40 and Cout = 72, 130 leave ragged channel chunks (Cout = 130 rows
     are not 16-byte aligned); clamp 1.5 runs the R = 2 form."""
     args = _case(11, *shape, dtype, cuda_device, clamp=clamp)
-    before = dcn_cuda.launches
+    before = counts["dcn_shift.fwd"]
     got = dcn_cuda.dcn_v2_shift_cuda(*args, clamp=clamp)
     want = tdcn.dcn_v2_shift_reference(*args, clamp=clamp)
     torch.cuda.synchronize()
-    assert dcn_cuda.launches == before + 1
+    assert counts["dcn_shift.fwd"] == before + 1
     tol = 1e-4 if dtype == torch.float32 else 6e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     # the public op takes the kernel for CUDA tensors
     torch.testing.assert_close(tdcn.dcn_v2_shift(*args, clamp=clamp), got,
                                rtol=0, atol=0)
-    assert dcn_cuda.launches == before + 2
+    assert counts["dcn_shift.fwd"] == before + 2
 
 
 @pytest.mark.cuda
@@ -89,11 +97,11 @@ def test_dcn_shift_bf16_kernel_split_and_ragged_tiles(cuda_device, shape,
                       dcn_cuda.num_sms(cuda_device))
     if shape[3] == 1024:
         assert p.split > 1
-    before = dcn_cuda.launches
+    before = counts["dcn_shift.fwd"]
     got = dcn_cuda.dcn_v2_shift_cuda(*args, clamp=clamp)
     want = tdcn.dcn_v2_shift_reference(*args, clamp=clamp)
     torch.cuda.synchronize()
-    assert dcn_cuda.launches == before + 1
+    assert counts["dcn_shift.fwd"] == before + 1
     torch.testing.assert_close(got.float(), want.float(), rtol=6e-2,
                                atol=6e-2)
     # the split reduction sums in a fixed order: the same bits every call
@@ -126,11 +134,11 @@ def test_tiny_flagship_neck_runs_the_kernel_eight_times(cuda_device):
     card = build(conf, device=cuda_device, seed=0)
     card.load_state_dict(cpu.state_dict())
     images = torch.randn(2, 64, 128, 3, generator=g)
-    before = dcn_cuda.launches
+    before = counts["dcn_shift.fwd"]
     with torch.inference_mode():
         got = card(images.to(cuda_device))
         want = cpu(images)
-    assert dcn_cuda.launches == before + 8
+    assert counts["dcn_shift.fwd"] == before + 8
     for k in ("scores", "bbox_2d", "bbox_3d"):
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-3,
                                    atol=1e-3)
@@ -163,11 +171,11 @@ def test_dcn_shift_backward_kernels_match_plain(cuda_device, dtype, shape,
     g = torch.tensor(rng.normal(size=shape[:3] + (shape[4],)),
                      dtype=dtype, device=cuda_device)
     tol = 1e-4 if dtype == torch.float32 else 5e-2
-    before = dict(dcn_cuda.bwd_launches)
+    before = bwd_launches()
     got = dcn_cuda.dcn_v2_shift_backward_cuda(x, off, m, w, g, clamp=clamp)
     want = tdcn.dcn_v2_shift_backward_reference(x, off, m, w, g, clamp=clamp)
     torch.cuda.synchronize()
-    assert all(dcn_cuda.bwd_launches[k] == before[k] + 1 for k in before)
+    assert all(counts[k] == before[k] + 1 for k in before)
     for name, a, b in zip(("dx", "doffset", "dmask", "dweight"), got, want):
         assert a.dtype == b.dtype and a.shape == b.shape, name
         assert _rel(a, b) <= tol, name
@@ -214,12 +222,12 @@ def test_dcn_shift_bwd_tiled_kernels_match_plain(cuda_device, dtype, shape,
     gk = torch.tensor(rng.normal(size=(B * H * W, 9 * C)), dtype=dtype,
                       device=cuda_device)
     tol = 1e-4 if dtype == torch.float32 else 5e-2
-    before = dict(dcn_cuda.bwd_launches)
+    before = bwd_launches()
     col = dcn_cuda.dcn_shift_bwd_cols_cuda(x, off, m, clamp=clamp)
     dx = dcn_cuda.dcn_shift_bwd_data_cuda(gk, off, m, x.shape, clamp=clamp)
     coord = dcn_cuda.dcn_shift_bwd_coord_cuda(x, gk, off, m, clamp=clamp)
     torch.cuda.synchronize()
-    assert all(dcn_cuda.bwd_launches[k] == before[k] + 1 for k in before)
+    assert all(counts[k] == before[k] + 1 for k in before)
     assert _rel(col, tdcn.shift_columns_reference(x, off, m,
                                                   clamp=clamp)) <= tol
     assert dx.dtype == dtype and dx.shape == x.shape
@@ -269,11 +277,11 @@ def test_tiny_flagship_train_step_on_the_card(cuda_device):
     for dev in ("cpu", cuda_device):
         state = create_train_state(conf, build(conf, device=dev, seed=0,
                                                phase="train"), 100)
-        before = (dcn_cuda.launches, dict(dcn_cuda.bwd_launches))
+        before = (counts["dcn_shift.fwd"], bwd_launches())
         losses[str(dev)] = float(make_train_step(conf, rois)(state,
                                                              batch)["loss"])
         if dev != "cpu":
-            assert dcn_cuda.launches == before[0] + 8
-            assert all(dcn_cuda.bwd_launches[k] == before[1][k] + 8
+            assert counts["dcn_shift.fwd"] == before[0] + 8
+            assert all(counts[k] == before[1][k] + 8
                        for k in before[1])
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)

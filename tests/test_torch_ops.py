@@ -29,6 +29,7 @@ from m3dssd_tpu_torch.ops import dcn_cuda
 from m3dssd_tpu_torch.ops.boxes import bbox_transform_inv_t, decode_bbox_3d_t
 from m3dssd_tpu_torch.ops.compact import first_m_true
 from m3dssd_tpu_torch.ops.nms import nms_select_t
+from m3dssd_tpu_torch.utils.profiling import counts
 
 # one torch thread per test process: the suite runs several workers at
 # once, and torch's default of one thread per core made them
@@ -171,10 +172,10 @@ def test_dcn_cuda_wrapper_refuses_what_the_kernel_does_not_take():
         dcn_cuda.dcn_v2_shift_cuda(x, off, m, w, b, clamp=2.5)
     with pytest.raises(ValueError, match="requires grad"):
         dcn_cuda.dcn_v2_shift_cuda(x.requires_grad_(), off, m, w, b)
-    launches = dcn_cuda.launches
+    launches = counts["dcn_shift.fwd"]
     with pytest.raises(ValueError, match="CUDA"):
         dcn_cuda.dcn_v2_shift_cuda(x.detach(), off, m, w, b)
-    assert dcn_cuda.launches == launches
+    assert counts["dcn_shift.fwd"] == launches
 
 
 # ---------------------------------------------------------------------------
