@@ -136,8 +136,8 @@ def ptxas_summary(report):
     """One line per kernel from nvcc's -Xptxas -v report: registers,
     spills and stack; warnings and errors verbatim."""
     out, name = {}, None
-    kernel = re.compile(r"Compiling entry function '\S*?(dcn_shift_\w*?"
-                        r"_kernel)([^']*)'")
+    kernel = re.compile(r"Compiling entry function '\S*?((?:dcn_shift|nms)_"
+                        r"\w*?_kernel)([^']*)'")
     for line in report.splitlines():
         m = kernel.search(line)
         if m:
@@ -207,6 +207,95 @@ def shift_dcn_inputs(B, H, W, C, Cout, dtype, device, seed, clamp=1.0):
     b = torch.randn(Cout, generator=g) * 0.1
     return (x.to(device, dtype), off.to(device), mask.to(device),
             w.to(device, dtype), b.to(device))
+
+
+# the detect cells' NMS: bs=64, 48 x 160 positions x 36 anchors, 40 rows,
+# IoU threshold and stop (score_thres); candidates an image at or above the
+# stop, as the cells read (4.5-610)
+NMS_CELL = (64, 48 * 160 * 36, 40, 0.4, 0.75)
+NMS_CANDIDATES = (5, 600)
+
+
+def nms_inputs(B, N, cand, stop, seed, device, ties=False, width=1280.0,
+               height=384.0):
+    """Boxes [B,4,N] and scores [B,N] of a 384x1280 image: `cand` (lo, hi)
+    anchors an image at or above `stop`, gathered around 1 to 16 objects
+    so that NMS suppresses; the rest below it, anywhere. With `ties` the
+    candidates take four distinct scores."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    u = lambda *s: torch.rand(*s, generator=g, device=device)
+    cx, cy = u(B, N) * width, u(B, N) * height
+    w, h = 16 + u(B, N) * 200, 16 + u(B, N) * 100
+    scores = u(B, N) * stop * 0.99
+    for b in range(B):
+        n = int(torch.randint(cand[0], cand[1] + 1, (1,), generator=g,
+                              device=device))
+        at = torch.randperm(N, generator=g, device=device)[:n]
+        k = int(torch.randint(1, 17, (1,), generator=g, device=device))
+        obj = torch.randint(0, k, (n,), generator=g, device=device)
+        ox, oy = u(k) * width, u(k) * height
+        ow, oh = 30 + u(k) * 150, 30 + u(k) * 80
+        cx[b, at] = ox[obj] + (u(n) - 0.5) * 0.3 * ow[obj]
+        cy[b, at] = oy[obj] + (u(n) - 0.5) * 0.3 * oh[obj]
+        w[b, at] = ow[obj] * (0.8 + 0.4 * u(n))
+        h[b, at] = oh[obj] * (0.8 + 0.4 * u(n))
+        s = stop + u(n) * (1 - stop)
+        if ties:
+            s = stop + torch.floor(u(n) * 4) / 8
+        scores[b, at] = s
+    boxes = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], 1)
+    return boxes.contiguous(), scores.contiguous()
+
+
+def phase_nms_vs_plain(device):
+    """The NMS kernel (m3dssd::nms_first_k) against its plain version
+    (ops/nms.py:nms_select_t) at the detect cells' shape, and with more
+    candidates than its capacity (the rounds path): equal indices and
+    flags, the overflow tally, kernel and plain ms, and the bound (one
+    read of the scores and the candidates' boxes, the table written).
+    Returns the cells' shape's {ms, plain_ms, bound_ms, launches}."""
+    from m3dssd_tpu_torch.ops import nms_op
+    from m3dssd_tpu_torch.ops.nms import nms_select_t
+    from m3dssd_tpu_torch.utils.profiling import counts
+
+    B, N, K, thr, stop = NMS_CELL
+    out = None
+    log("NMS kernel vs plain (B, N, K; candidates an image: equal, tally, "
+        "kernel_ms plain_ms bound_ms share_of_bound)")
+    for i, (name, cand) in enumerate((
+            ("cells", NMS_CANDIDATES),
+            ("overflow", (nms_op.CAP + 1, nms_op.CAP + 900)))):
+        boxes, scores = nms_inputs(B, N, cand, stop, seed=20 + i,
+                                   device=device)
+        kernel = lambda: nms_op.nms_first_k(boxes, scores, thr, K, stop)
+        plain = lambda: nms_select_t(boxes, scores, thr, K, stop_below=stop)
+        nms_op.reset_overflow_tally(device)
+        launches = counts["nms.kernel"]
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        launches = counts["nms.kernel"] - launches
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        check(same, f"NMS kernel differs from plain ({name})")
+        tally = nms_op.overflow_tally(device)
+        check(tally == (0 if name == "cells" else B),
+              f"NMS overflow tally {tally} ({name})")
+        check(launches == 1, f"NMS kernel launched {launches} times")
+        k_ms = cuda_ms(kernel, 50 if name == "cells" else 5)
+        p_ms = cuda_ms(plain, 10)
+        ncand = int((scores >= stop).sum())
+        nbytes = B * N * 4 + ncand * 16 + B * K * 9
+        bound = nbytes / PEAK_BYTES * 1e3
+        log(f"  {name}: {B}, {N}, {K}; {ncand / B:.1f}: {same}, {tally}, "
+            f"{k_ms:.4f} {p_ms:.4f} {bound:.4f} {bound / k_ms:.4f}; kept "
+            f"{int(want[1].sum()) / B:.2f} an image")
+        if out is None:
+            out = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound,
+                   "overflow_ms": None}
+        else:
+            out["overflow_ms"] = k_ms
+        del boxes, scores, got, want
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_kernel_vs_plain(device):
@@ -321,14 +410,16 @@ CARD_CPU_CROP = (128, 448)
 
 def phase_detect(label):
     """The flagship detector, bf16, through the user's entry points; the
-    kernel's launch count is set to 0 before each run's first call and
-    read after it. Returns the launches summed over the runs."""
+    kernels' launch counts are set to 0 before each run's first call and
+    read after it. Returns the shift-DCN and the NMS kernel's launches,
+    each summed over the runs."""
     from m3dssd_tpu_torch.anchors import locate_anchors
     from m3dssd_tpu_torch.config import flagship_conf
     from m3dssd_tpu_torch.inference.detect import make_batch_detector
     from m3dssd_tpu_torch.models import bias_background, build
+    from m3dssd_tpu_torch.utils.profiling import counts
 
-    launches = 0
+    launches = nms_launches = 0
     for crop, B, bg, iters in DETECT_RUNS:
         conf = flagship_conf(crop)
         t0 = time.perf_counter()
@@ -346,7 +437,11 @@ def phase_detect(label):
         n = bwd_counts()["forward"]
         check(n == 8, f"{crop} bs={B}: shift-DCN kernel launched {n} "
               "times in one forward, expected 8")
+        n_nms = counts["nms.kernel"]
+        check(n_nms == 1, f"{crop} bs={B}: NMS kernel launched {n_nms} "
+              "times in one call, expected 1")
         launches += n
+        nms_launches += n_nms
         check(tuple(dets.shape) == (B, conf.nms_topN_post, 14),
               f"dets shape {tuple(dets.shape)}")
         check(bool(torch.isfinite(dets).all()), "non-finite dets")
@@ -360,7 +455,7 @@ def phase_detect(label):
             f"im/s ({label}); set-up {setup_s:.1f} s")
         del model, detect, images
         torch.cuda.empty_cache()
-    return launches
+    return launches, nms_launches
 
 
 def _rel_err(got, ref):
@@ -583,7 +678,8 @@ def phase_eval(label, device="cuda"):
     384x1280 bs=8 (bf16, packed input), result txts and AP; then the
     driver's loop again, its parts timed on the same batches, both AP
     engines on the gt written as detections, and the sparse pre-NMS path
-    at bs=1. Returns the kernel's launches in the driver's run.
+    at bs=1. Returns the shift-DCN and the NMS kernel's launches in the
+    driver's run.
     `profile_eval.py` times other forms of the loop."""
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -593,6 +689,7 @@ def phase_eval(label, device="cuda"):
     from m3dssd_tpu_torch.inference.detect import (_compact_positions,
                                                    _sparse_nms_cfg,
                                                    make_batch_detector)
+    from m3dssd_tpu_torch.utils.profiling import counts
 
     B, n = EVAL_BATCH, EVAL_IMAGES
     t0 = time.perf_counter()
@@ -610,9 +707,12 @@ def phase_eval(label, device="cuda"):
                                      batch_size=B, packed_input=True)
         entry_s = time.perf_counter() - t0
         launches = bwd_counts()["forward"]
+        nms_launches = counts["nms.kernel"]
         nb = -(-n // B)
         check(launches == 8 * nb, f"eval: shift-DCN kernel launched "
               f"{launches} times in {nb} batches, expected 8 per batch")
+        check(nms_launches == nb, f"eval: NMS kernel launched "
+              f"{nms_launches} times in {nb} batches, expected 1 per batch")
         txts = read_txts(results)
         check(sorted(txts) == [f"{i:06d}.txt" for i in range(n)],
               f"eval: {len(txts)} result txts for {n} images")
@@ -761,7 +861,7 @@ def phase_eval(label, device="cuda"):
     log(f"  sparse pre-NMS at bs=1 ({n_pos} confident positions, budget "
         f"{m_pos}, {keep_a.shape[0]} kept rows): dense {sp_ms['dense']} ms, "
         f"sparse {sp_ms['sparse']} ms per call; kept rows identical")
-    return launches
+    return launches, nms_launches
 
 
 # --------------------------------------------------------------------------
@@ -1038,6 +1138,7 @@ def reset_counts():
 
     for k in ("fwd",) + tuple("bwd." + k for k in BWD_KERNELS):
         counts["dcn_shift." + k] = 0
+    counts["nms.kernel"] = 0
 
 
 def sync_s(fn):
@@ -3245,10 +3346,12 @@ def main() -> int:
     dev = torch.device("cuda")
     totals, max_err = timed(phase_kernel_vs_plain, dev)
     bt, prod_ms, bwd_err = timed(phase_bwd_vs_plain, dev)
-    # the forward kernel's launches on the main path, per phase
-    fwd = {"detect": timed(phase_detect, label)}
+    nms_t = timed(phase_nms_vs_plain, dev)
+    # the forward and the NMS kernel's launches on the main path, per phase
+    fwd, nms = {}, {}
+    fwd["detect"], nms["detect"] = timed(phase_detect, label)
     timed(phase_card_vs_cpu)
-    fwd["eval"] = timed(phase_eval, label)
+    fwd["eval"], nms["eval"] = timed(phase_eval, label)
     train_launches, train_stats = timed(phase_train, label)
     dp_launches = timed(phase_data_parallel, label, train_stats["step_ms"])
     mesh_launches = timed(phase_mesh_axes, label)
@@ -3273,6 +3376,8 @@ def main() -> int:
     launches = sum(fwd.values())
     log("forward kernel launches (through m3dssd::dcn_shift) per phase: "
         + ", ".join(f"{k} {v}" for k, v in fwd.items()))
+    log("NMS kernel launches (through m3dssd::nms_first_k) per phase: "
+        + ", ".join(f"{k} {v}" for k, v in nms.items()))
 
     # the forward kernel's numbers summed over one forward of each size:
     # the 384x1280 bs=1 and bs=8 (the eval and train runs') and the
@@ -3314,6 +3419,21 @@ def main() -> int:
             "library_ms": None,
             "products_ms": prod_ms,
         })
+    kernels.append({
+        "name": "nms_first_k",
+        "route": "cuda",
+        "source": "m3dssd_tpu_torch/csrc/nms.cu",
+        "replaces": None,
+        "launches": sum(nms.values()),
+        "launches_by_phase": nms,
+        "max_abs_err": 0.0,
+        "ms": nms_t["ms"],
+        "plain_ms": nms_t["plain_ms"],
+        "bound_ms": nms_t["bound_ms"],
+        "bound_by": "bytes",
+        "overflow_ms": nms_t["overflow_ms"],
+        "library_ms": None,
+    })
     log(f"smoke run took {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -7,11 +7,13 @@ carry the boxes of anchor index 0. `make_detector` is the single-image form
 with the reference's optional top-k pre-NMS cut (`use_topk_pre`).
 
 By default every anchor is decoded and NMS runs as first-k selection over
-all of them (ops/nms.py:nms_select_t). With `nms_sparse_topm > 0` (and a
-positive `score_thres`) each image first keeps only the anchors of the
-positions whose best anchor scores at least `score_thres`, up to a budget
-of positions; NMS then runs over those candidates, by the bitmask fixpoint
-(`nms_bitmask`) or by first-k selection. That leaves every row at or above
+all of them: the custom op `m3dssd::nms_first_k` (ops/nms_op.py), the
+hand-written kernel on the card and ops/nms.py:nms_select_t on the CPU.
+With `nms_sparse_topm > 0` (and a positive `score_thres`) each image
+first keeps only the anchors of the positions whose best anchor scores at
+least `score_thres`, up to a budget of positions; NMS then runs over
+those candidates, by the bitmask fixpoint (`nms_bitmask`) or by first-k
+selection. That leaves every row at or above
 `score_thres` exactly as the dense path gives it (a sub-threshold box never
 suppresses a higher-scoring one). When any image of the batch has more
 confident positions than the budget, the whole batch takes the dense path
@@ -20,8 +22,15 @@ torch.export both paths are in the graph).
 
 Each call runs in the profiler span `m3dssd.detect`, the decoder in
 `m3dssd.decode_nms`, and inside it `m3dssd.compact`, `m3dssd.decode`,
-`m3dssd.nms` (one `m3dssd.nms.round` a round) and `m3dssd.table`
-(`utils/profiling.py`).
+`m3dssd.nms` (on the CPU one `m3dssd.nms.round` a round) and
+`m3dssd.table` (`utils/profiling.py`).
+
+On the card the batched detector paces itself: each call waits, after it
+has issued its decode and NMS, for the end of its own model forward
+(`sync.detect.inflight`), so at most one call's decode and NMS is queued
+when it returns. The card runs that tail while the host issues the next
+call, and a caller's clock around a call measures that call, not a queue
+of calls the host ran ahead with.
 """
 
 from __future__ import annotations
@@ -34,9 +43,10 @@ import torch
 from ..ops.boxes import bbox_transform_inv_t, decode_bbox_3d_t
 from ..ops.compact import first_m_true
 from ..ops.control import cond
-from ..ops.nms import nms_bitmask_select_t, nms_select_t
+from ..ops.nms import nms_bitmask_select_t
+from ..ops.nms_op import nms_first_k
 from ..utils.device import resolve_device
-from ..utils.profiling import span
+from ..utils.profiling import host_sync, span
 
 # detection table columns
 DET_COLS = ["x1", "y1", "x2", "y2", "score", "cls",
@@ -162,9 +172,8 @@ class _Decoder(torch.nn.Module):
                                                  self.nms_thres,
                                                  self.top_post)
             else:
-                fi, valid = nms_select_t(coords_2d, scores, self.nms_thres,
-                                         self.top_post,
-                                         stop_below=self.nms_stop)
+                fi, valid = nms_first_k(coords_2d, scores, self.nms_thres,
+                                        self.top_post, self.nms_stop)
         with span("m3dssd.table"):
             B, K = fi.shape
             final_scores = torch.where(valid, scores.gather(1, fi), -1.0)
@@ -241,20 +250,30 @@ def make_batch_detector(conf, rois: np.ndarray, model, packed_input: bool = Fals
     parallelism every rank runs its own detector on whole batches
     (`test_driver.test_kitti_3d(mesh=...)` deals the batches out), and a
     model built on a mesh's spatial or model axis (`build(mesh=...)`)
-    runs them inside its forward, on the weights' shards in place.
+    runs them inside its forward, on the weights' shards in place. On the
+    card a call returns once its model forward has run, with its decode
+    and NMS still queued (the pacing in the module note).
     """
     dev = resolve_device(device)
     model = model.to(dev).eval()
     dec = _Decoder(conf, rois, dev)
+    paced = dev.type == "cuda"
 
     @torch.inference_mode()
     def detect(images, scale_factors):
         with span("m3dssd.detect"):
             out = model(torch.as_tensor(images, device=dev),
                         packed=packed_input)
+            if paced:
+                forward_done = torch.cuda.Event()
+                forward_done.record()
             sfs = torch.as_tensor(scale_factors, dtype=torch.float32,
                                   device=dev).reshape(-1)
-            return dec(out, sfs)
+            dets = dec(out, sfs)
+            if paced:
+                with host_sync("detect.inflight"):
+                    forward_done.synchronize()
+            return dets
 
     detect.device = dev
     return detect

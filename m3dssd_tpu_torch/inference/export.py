@@ -6,9 +6,10 @@ with `torch.export.export`, the weights held in the program; a serving
 process loads it with `load_detector` and calls it without the
 model-building code, the config or a checkpoint. The shift-DCN layers of
 the neck appear in the graph as calls of the custom op `m3dssd::dcn_shift`
-(ops/dcn_op.py), so the loading process imports that module (which
-`load_detector` does) and the op runs the hand-written kernel on the card
-or the plain version on the CPU. The host syncs of eager detect are graph
+(ops/dcn_op.py) and the NMS as a call of `m3dssd::nms_first_k`
+(ops/nms_op.py), so the loading process imports those modules (which
+`load_detector` does) and each op runs its hand-written kernel on the card
+or its plain version on the CPU. The host syncs of eager detect are graph
 operators in the trace (ops/control.py): `torch.cond` for the align and
 sparse pre-NMS overflow switches, a `while_loop` for the bitmask NMS
 fixpoint.
@@ -86,7 +87,7 @@ def export_detector(conf, rois: np.ndarray, model, *, batch_size: int = 0,
     given, is the state dict at a higher precision that the model was cast
     from (a checkpoint's float32 weights), and the fold reads from it.
     """
-    from ..ops import dcn_op  # noqa: F401  (registers m3dssd::dcn_shift)
+    from ..ops import dcn_op, nms_op  # noqa: F401  (register the ops)
 
     dev = resolve_device(device)
     model = model.to(dev).eval()
@@ -139,7 +140,7 @@ def load_detector(path: str, device=None):
     -> dets` (with `.exported`, `.meta` and `.device`). Runs on the card
     unless `device` names another device; a program exported on another
     device is moved there."""
-    from ..ops import dcn_op  # noqa: F401  (registers m3dssd::dcn_shift)
+    from ..ops import dcn_op, nms_op  # noqa: F401  (register the ops)
 
     dev = resolve_device(device)
     ep = torch.export.load(path)

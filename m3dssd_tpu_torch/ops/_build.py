@@ -1,11 +1,12 @@
 """Build the port's CUDA sources (`csrc/*.cu`) into shared libraries.
 
 Each source is compiled by `nvcc` for Hopper (`sm_90a`) into a library with
-a plain C interface, loaded with `ctypes` by its wrapper (`dcn_cuda.py`):
-`dcn_shift.cu` holds the shift-DCN forward, `dcn_shift_bwd.cu` its
-backward. The build happens at first use, into `m3dssd_tpu_torch/_build/`
-(listed in .gitignore), under a name that carries a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused.
+a plain C interface, loaded with `ctypes` by its wrapper (`dcn_cuda.py`,
+`nms_op.py`): `dcn_shift.cu` holds the shift-DCN forward,
+`dcn_shift_bwd.cu` its backward, `nms.cu` the detect path's greedy NMS.
+The build happens at first use, into `m3dssd_tpu_torch/_build/` (listed
+in .gitignore), under a name that carries a hash of the source and the
+flags, so an edited source is rebuilt and an unchanged one is reused.
 The hash covers the headers the sources share (`csrc/*.cuh`) too.
 `build()` starts one `nvcc` per missing library, all at once.
 """
@@ -21,7 +22,7 @@ from typing import Dict, Optional, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {name: os.path.join(_PKG, "csrc", f"{name}.cu")
-           for name in ("dcn_shift", "dcn_shift_bwd")}
+           for name in ("dcn_shift", "dcn_shift_bwd", "nms")}
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

@@ -1,6 +1,9 @@
 """Greedy 2D NMS, batched over images: sequential first-k selection over
 every candidate, a parallel bitmask fixpoint over a compacted candidate
-set, and a plain numpy oracle.
+set, and a plain numpy oracle. The first-k selection is the plain version
+of the custom op `m3dssd::nms_first_k` (ops/nms_op.py), which the detect
+path calls: on the card the op runs its kernel (csrc/nms.cu), on the CPU
+this function.
 
 IoU uses the +1 pixel area convention of the reference NMS kernels.
 """
@@ -12,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..utils.profiling import host_sync, span
+from ..utils.profiling import span
 from .compact import first_m_true
 from .control import fixpoint
 
@@ -49,8 +52,7 @@ def nms_select_t(boxes_t, scores, iou_thresh: float, num_out: int,
     arange_n = torch.arange(N, device=dev)
     idxs = torch.zeros((B, num_out), dtype=torch.int64, device=dev)
     valid = torch.zeros((B, num_out), dtype=torch.bool, device=dev)
-    with host_sync("nms.neg_inf"):    # a scalar copied from pageable memory
-        neg_inf = torch.tensor(float("-inf"), device=dev)
+    neg_inf = torch.full((), float("-inf"), device=dev)
 
     for k in range(num_out):
         with span("m3dssd.nms.round"):

@@ -13,8 +13,9 @@ each span its parent. Every name takes the prefix `m3dssd.`.
 `counts` is the process's one registry of counts (`count(name, n)`), kept
 whether or not a profiler runs: host syncs (`sync.<site>`), dense
 fallbacks of a sparse path (`fallback.<site>`) and kernel launches
-(`dcn_shift.fwd`, `dcn_shift.bwd.cols`, `.data`, `.coord`). A reader
-takes differences, or sets a name back to 0 before the work it counts.
+(`dcn_shift.fwd`, `dcn_shift.bwd.cols`, `.data`, `.coord`, `nms.kernel`).
+A reader takes differences, or sets a name back to 0 before the work it
+counts.
 """
 
 from __future__ import annotations

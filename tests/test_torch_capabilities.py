@@ -648,7 +648,7 @@ def test_make_tb_writer_is_none_without_tensorboard(tmp_path, monkeypatch,
 
 def test_phase_timer_and_device_trace(tmp_path):
     """`device_trace` holds the program's own spans (the phase timer's
-    host clock gave way to them): greedy NMS's sync and its rounds, in
+    host clock gave way to them): greedy NMS's rounds, and no sync, in
     `key_averages()` and in the Chrome trace it writes."""
     from m3dssd_tpu_torch.ops.nms import nms_select_t
 
@@ -661,7 +661,7 @@ def test_phase_timer_and_device_trace(tmp_path):
                                                               False]
     counted = {e.key: e.count for e in prof.key_averages()}
     assert counted["m3dssd.nms.round"] == 3
-    assert counted["m3dssd.sync.nms.neg_inf"] == 1
+    assert not [k for k in counted if k.startswith("m3dssd.sync.")]
     files = os.listdir(tmp_path / "trace")
     assert len(files) == 1 and files[0].endswith(".json")
     with open(tmp_path / "trace" / files[0]) as f:

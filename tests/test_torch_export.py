@@ -221,15 +221,15 @@ def test_artifact_equals_eager(setup, artifact, bg_bias):
 
 
 def test_load_with_only_the_op_module(setup, artifact):
-    """A process that imports only ops/dcn_op.py loads and runs the
-    artifact."""
+    """A process that imports only the op modules, ops/dcn_op.py and
+    ops/nms_op.py, loads and runs the artifact."""
     conf, rois, _, model, images = setup
     path, _ = artifact
     np.save(path + ".images.npy", images)
     code = (
         "import sys, numpy as np, torch\n"
         "torch.set_num_threads(1)\n"
-        "import m3dssd_tpu_torch.ops.dcn_op\n"
+        "import m3dssd_tpu_torch.ops.dcn_op, m3dssd_tpu_torch.ops.nms_op\n"
         "ep = torch.export.load(%r)\n"
         "x = torch.from_numpy(np.load(%r))\n"
         "out = ep.module()(x, torch.ones(x.shape[0]))\n"

@@ -276,8 +276,9 @@ def test_snapshot_copies_package(tmp_path):
     assert root == os.path.join(run, "model_src")
     assert snapshot_path(run) == root
     for rel in ("__init__.py", "models/rpn.py", "ops/dcn.py",
-                "ops/dcn_op.py", "config.py", "csrc/dcn_shift.cu",
-                "csrc/dcn_shift_bwd.cu", "csrc/dcn_shift_common.cuh"):
+                "ops/dcn_op.py", "ops/nms_op.py", "config.py",
+                "csrc/dcn_shift.cu", "csrc/dcn_shift_bwd.cu",
+                "csrc/dcn_shift_common.cuh", "csrc/nms.cu"):
         with open(os.path.join(root, "m3dssd_tpu_torch", rel), "rb") as a, \
                 open(os.path.join(PKG, rel), "rb") as b:
             assert a.read() == b.read(), rel

@@ -5,8 +5,9 @@ count and span, and no profiler op in an exported program.
 
 The CPU tests run a tiny detector (DLA-34 at 64x224, float32). The test
 marked `cuda` runs the flagship at 384x1280 bs=8 on the card, where every
-host sync raises a warning under `torch.cuda.set_sync_debug_mode("warn")`,
-and needs only torch and the port:
+host sync raises a warning under `torch.cuda.set_sync_debug_mode("warn")`
+except the pacing's event wait (`sync.detect.inflight`), which the test
+counts apart, and needs only torch and the port:
 
     python -m pytest tests/test_torch_tracing.py -m cuda --noconftest \
         -p no:cacheprovider
@@ -51,7 +52,7 @@ PARENTS = {
     "m3dssd.nms": "m3dssd.decode_nms",
     "m3dssd.nms.round": "m3dssd.nms",
     "m3dssd.sync.nms.fixpoint": "m3dssd.nms",
-    "m3dssd.sync.nms.neg_inf": "m3dssd.nms",
+    "m3dssd.sync.detect.inflight": "m3dssd.detect",
     "m3dssd.table": "m3dssd.decode_nms",
 }
 
@@ -113,7 +114,7 @@ def test_span_is_off_without_a_recording_profiler(detectors):
     images, sfs = _images()
     before = _sync_counts()
     det(images, sfs)
-    assert _sync_counts() - before == Counter({"sync.nms.neg_inf": 1})
+    assert _sync_counts() - before == Counter()
     names = set()
     with profile(activities=[ProfilerActivity.CPU],
                  schedule=schedule(wait=0, warmup=1, active=1),
@@ -155,8 +156,8 @@ def test_span_names_and_nesting(detectors, kind):
                  "m3dssd.compact", "m3dssd.sync.decode.sparse",
                  "m3dssd.sync.nms.fixpoint"}
     else:
-        want |= {"m3dssd.sync.nms.neg_inf"}
-        # the dense first-k NMS: one round per table row
+        # the dense first-k NMS, the plain version on the CPU: one round
+        # per table row
         assert names["m3dssd.nms.round"] == 40
     assert set(names) == want
     assert names["m3dssd.detect"] == 1
@@ -166,8 +167,8 @@ def test_span_names_and_nesting(detectors, kind):
 
 @pytest.mark.parametrize("kind", ["fullalign", "base"])
 def test_sync_counts_match_the_read_backs(detectors, kind, monkeypatch):
-    """One `sync.<site>` a read-back of a `cond` or fixpoint that ran, and
-    one a copy that waits (the NMS's -inf scalar); each in its span."""
+    """One `sync.<site>` a read-back of a `cond` or fixpoint that ran, each
+    in its span; the dense path has none on the CPU."""
     sites = []
     real = control.read_back
 
@@ -187,7 +188,6 @@ def test_sync_counts_match_the_read_backs(detectors, kind, monkeypatch):
         assert Counter(sites)["align.shape"] == 1
     else:
         assert sites == []
-        want["sync.nms.neg_inf"] += 1
     assert got == want
     spans = Counter(n[len("m3dssd."):] for n, *_ in _spans(prof)
                     if n.startswith("m3dssd.sync."))
@@ -231,9 +231,11 @@ def test_export_under_a_profiler_holds_no_profiler_op():
 @pytest.mark.parametrize("regime", ["dense", "sparse"])
 def test_every_sync_of_a_card_detect_is_counted(regime):
     """Under the sync debug mode every sync inside a bs=8 flagship detect
-    on the card warns once; the warnings equal the call's `sync.*` counts.
-    A fresh model is confident everywhere (align's dense fallback); one
-    biased to the background takes the sparse align."""
+    on the card warns once; the warnings equal the call's `sync.*` counts
+    but the pacing's one wait on an event, `sync.detect.inflight`, which
+    the debug mode does not flag. No sync of the NMS. A fresh model is
+    confident everywhere (align's dense fallback); one biased to the
+    background takes the sparse align."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     conf = flagship_conf((384, 1280))
@@ -258,8 +260,9 @@ def test_every_sync_of_a_card_detect_is_counted(regime):
         torch.cuda.set_sync_debug_mode("default")
     synced = [w for w in caught if "synchroniz" in str(w.message)]
     got = _sync_counts() - before
-    assert got["sync.nms.neg_inf"] == 1
-    assert sum(got.values()) == len(synced), (got, [
+    assert got["sync.detect.inflight"] == 1
+    assert not [k for k in got if k.startswith("sync.nms.")]
+    assert sum(got.values()) - 1 == len(synced), (got, [
         str(w.message) for w in synced])
     dense = profiling.counts["fallback.align.shape"] - fallbacks
     assert dense == (1 if regime == "dense" else 0)
